@@ -1,0 +1,18 @@
+"""msckf_mono_tpu_torch: the MSCKF filter ported to PyTorch and CUDA.
+
+A second package beside the JAX reference ``msckf_mono_tpu``. It mirrors that
+package's layout and function names, imports neither ``jax`` nor anything of
+``msckf_mono_tpu``, and carries an explicit leading filter-batch dimension B
+on every tensor (B = 1 for one filter).
+"""
+
+import torch
+
+# The filter math is full f32. TF32 on the card is the same trap as the bf16
+# MXU passes recorded at msckf_mono_tpu/core/filter.py:70-75: a ~10-bit
+# mantissa in the covariance products silently destroys the covariance
+# algebra (the filter diverges within ~100 frames while staying finite).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

@@ -1,0 +1,67 @@
+"""Monte-Carlo fleet construction (port of ``msckf_mono_tpu/parallel/montecarlo.py``).
+
+The batched-filter axis is fed by perturbing the initial IMU state and
+biases; each perturbation is an independent filter sharing the same sensor
+stream. Random numbers come from an explicit ``torch.Generator`` (on the
+CPU, so a seed gives the same fleet on every device); they are not the JAX
+package's ``jax.random`` draws.
+
+Not ported yet: ``make_grid_fleet``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from msckf_mono_tpu_torch.core.types import FilterState, ImuState, init_filter_state
+from msckf_mono_tpu_torch.utils import quat
+from msckf_mono_tpu_torch.utils.config import MsckfConfig
+
+
+def perturb_imu_state(
+    imu: ImuState,
+    generator: torch.Generator,
+    n: int,
+    sigma_p: float = 0.0,
+    sigma_v: float = 0.05,
+    sigma_theta: float = 0.005,
+    sigma_bg: float = 1e-3,
+    sigma_ba: float = 1e-2,
+) -> ImuState:
+    """n perturbed copies of a one-filter ``imu`` (batch 1) -> batch n."""
+    dtype = imu.p_I_G.dtype
+    dev = imu.p_I_G.device
+
+    def noise(sigma):
+        draw = torch.randn((n, 3), generator=generator, dtype=torch.float64)
+        return (draw * sigma).to(dtype=dtype, device=dev)
+
+    def b(x):
+        return x.expand((n,) + tuple(x.shape[1:]))
+
+    dp, dv, dth, dbg, dba = (noise(s) for s in (sigma_p, sigma_v, sigma_theta, sigma_bg, sigma_ba))
+    dq = quat.build_update_quat(dth)
+    q = quat.mul(dq, b(imu.q_IG))
+    v = b(imu.v_I_G) + dv
+    p = b(imu.p_I_G) + dp
+    return ImuState(
+        q_IG=q, b_g=b(imu.b_g) + dbg, v_I_G=v, b_a=b(imu.b_a) + dba, p_I_G=p,
+        g=b(imu.g).clone(), q_IG_null=q, v_I_G_null=v, p_I_G_null=p,
+    )
+
+
+def make_fleet(config: MsckfConfig, imu: ImuState, n: int, generator: torch.Generator | None = None,
+               dtype=torch.float32, device="cuda", **sigmas) -> FilterState:
+    """n independent filter instances with perturbed inits, on ``device``."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    imu = type(imu)(**{k: v.to(device=device, dtype=dtype) for k, v in vars(imu).items()})
+    return init_filter_state(config, perturb_imu_state(imu, generator, n, **sigmas),
+                             dtype=dtype, device=device)
+
+
+def broadcast_frames(frames, n: int):
+    """Share one (T, ...) frame stack across n filters -> (T, n, ...) views (no copy)."""
+    from msckf_mono_tpu_torch.core.types import tree_map
+
+    return tree_map(lambda x: x[:, None].expand((x.shape[0], n) + tuple(x.shape[1:])), frames)

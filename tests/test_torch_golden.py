@@ -1,0 +1,100 @@
+"""The port against the committed golden trajectory, its own copies of the JAX
+package's numpy modules, and its import hygiene.
+
+* Golden: the port's ``run_sequence`` in f64 at the default ``MsckfConfig`` on
+  ``eval/golden.GOLDEN_SPEC`` reproduces ``tests/golden/synthetic_f64.npz``
+  (p, q, v within 1e-6, P trace rtol 1e-6, num_residualized equal). No JAX
+  run is needed.
+* ``data/synthetic.generate`` / ``to_frame_inputs`` and ``eval/ate`` are the
+  port's own copies: they give the JAX package's values exactly.
+* The package imports neither ``jax`` nor ``msckf_mono_tpu``.
+"""
+
+import dataclasses
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from msckf_mono_tpu.data import synthetic as jsyn
+from msckf_mono_tpu.eval import ate as jate
+from msckf_mono_tpu.eval import golden as jgolden
+from msckf_mono_tpu_torch.core import filter as tfilter
+from msckf_mono_tpu_torch.data import synthetic as tsyn
+from msckf_mono_tpu_torch.eval import ate as tate
+from msckf_mono_tpu_torch.parallel import sharding as tsharding
+
+from tests import _torch_port as tp
+
+REPO = Path(__file__).resolve().parent.parent
+
+
+def test_reproduces_committed_golden():
+    _, tc = tp.configs()
+    seq = tsyn.generate(tc, **jgolden.GOLDEN_SPEC)
+    state = tp.port_initial_state(tc, seq, torch.float64)
+    final, outs = tfilter.run_sequence(state, tp.port_frames(seq, torch.float64), tc)
+    golden = np.load(jgolden.DEFAULT_PATH)
+    for key, got in (("p", outs.p_I_G), ("q", outs.q_IG), ("v", outs.v_I_G)):
+        np.testing.assert_allclose(got[:, 0].numpy(), golden[key], rtol=0, atol=1e-6, err_msg=key)
+    np.testing.assert_allclose(float(torch.trace(final.P[0])), float(golden["P_trace"]), rtol=1e-6)
+    assert int(final.num_residualized[0]) == int(golden["num_residualized"])
+    np.testing.assert_array_equal(seq.gt_p, golden["gt_p"])
+    assert tsharding.fleet_metrics(final)["total_residualized"] == int(golden["num_residualized"])
+
+
+def test_synthetic_copy_matches_jax():
+    jc, tc = tp.configs(dict(tp.TINY_FILTER), dict(tp.TINY_SHAPES))
+    want = jsyn.generate(jc, n_frames=12, seed=5, pixel_noise=0.5)
+    got = tsyn.generate(tc, n_frames=12, seed=5, pixel_noise=0.5)
+    for f in dataclasses.fields(want):
+        w, g = getattr(want, f.name), getattr(got, f.name)
+        np.testing.assert_array_equal(np.asarray(g), np.asarray(w), err_msg=f.name)
+
+    jf = jsyn.to_frame_inputs(want, jnp.float64)
+    tf = tsyn.to_frame_inputs(got, torch.float64, device="cpu")
+    for f in dataclasses.fields(jf):
+        w, g = np.asarray(getattr(jf, f.name)), getattr(tf, f.name).numpy()
+        assert g.dtype == w.dtype, f.name
+        np.testing.assert_array_equal(g, w, err_msg=f.name)
+
+
+def test_ate_copy_matches_jax():
+    rng = np.random.default_rng(0)
+    gt = np.cumsum(rng.normal(size=(50, 3)), axis=0)
+    est = gt @ np.array([[0.0, -1, 0], [1, 0, 0], [0, 0, 1]]).T + 0.3 + 0.05 * rng.normal(size=gt.shape)
+    for align in (True, False):
+        assert tate.ate_rmse(est, gt, align=align) == jate.ate_rmse(est, gt, align=align)
+    assert tate.final_drift(est, gt) == jate.final_drift(est, gt)
+    for with_scale in (True, False):
+        for g, w in zip(tate.umeyama_alignment(est, gt, with_scale), jate.umeyama_alignment(est, gt, with_scale)):
+            np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
+
+
+MODULES = sorted(
+    ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
+    for p in (REPO / "msckf_mono_tpu_torch").rglob("*.py")
+)
+
+
+def test_import_hygiene():
+    """Every port module imports with jax and the JAX package made unimportable."""
+    assert "msckf_mono_tpu_torch.ops.psd_cuda" in MODULES and len(MODULES) >= 25
+    code = (
+        "import sys, importlib\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'msckf_mono_tpu'):\n"
+        "    sys.modules[name] = None\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'msckf_mono_tpu')\n"
+        "       and sys.modules[m] is not None]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0 and proc.stdout.strip() == "ok", proc.stderr
