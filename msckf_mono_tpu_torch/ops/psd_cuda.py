@@ -5,85 +5,36 @@ kernel in ``csrc/psd_gamma.cu`` on a CUDA tensor and takes
 :func:`gamma_psd_plain` only for a tensor that lies on the CPU; on a CUDA
 tensor it launches the kernel or raises, with no fallback.
 
-The kernel is compiled by ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface (loaded with ``ctypes``) on first use, into
-``msckf_mono_tpu_torch/build/``; the library name carries a hash of the
-source, so an edited source is rebuilt. The shared-memory plan lives in the
-source alone: an R whose systems do not fit a block's shared memory (R > 120
-on an H100) makes the launcher return an error, and :func:`gamma_psd` raises.
+The kernel is compiled by ``nvcc`` for ``sm_90a`` on first use
+(``ops/cuda_build.py``). The shared-memory plan lives in the source alone: an
+R whose systems do not fit a block's shared memory (R > 120 on an H100) makes
+the launcher return an error, and :func:`gamma_psd` raises.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
 from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "psd_gamma.cu"
-BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+from msckf_mono_tpu_torch.ops import cuda_build
 
-
-def _nvcc() -> str:
-    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    candidates = [os.path.join(cuda_home, "bin", "nvcc")] if cuda_home else []
-    candidates += [shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"]
-    for c in candidates:
-        if c and os.path.isfile(c):
-            return c
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+SOURCE = cuda_build.source("psd_gamma")
+BUILD_DIR = cuda_build.BUILD_DIR
 
 
 def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"libpsd_gamma_{digest[:16]}.so"
-
-
-def build_library(verbose: bool = False) -> Path:
-    """Compile ``csrc/psd_gamma.cu`` unless this source's library exists.
-
-    Builds into a temporary file and renames it, so a process building
-    beside another never loads a half-written library.
-    """
-    out = library_path()
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)]
-    if verbose:
-        cmd.insert(1, "-Xptxas=-v")
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        if verbose and proc.stderr:
-            print(proc.stderr.strip())
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    return cuda_build.library_path("psd_gamma")
 
 
 @functools.lru_cache(maxsize=None)
 def _load() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build_library()))
+    lib = cuda_build.load("psd_gamma")
     lib.psd_gamma_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                      ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     lib.psd_gamma_launch.restype = ctypes.c_int
-    lib.psd_gamma_error_name.argtypes = [ctypes.c_int]
-    lib.psd_gamma_error_name.restype = ctypes.c_char_p
     return lib
 
 
@@ -126,7 +77,7 @@ def gamma_psd(Smat: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         rc = lib.psd_gamma_launch(Smat.data_ptr(), r.data_ptr(), out.data_ptr(), n, R, stream)
     if rc != 0:
         raise RuntimeError(f"gamma_psd: kernel launch for n={n}, R={R} failed with CUDA "
-                           f"error {rc} ({lib.psd_gamma_error_name(rc).decode()})")
+                           f"error {rc} ({cuda_build.error_name('psd_gamma', rc)})")
     _GAMMA_PSD.launches += 1
     return out
 

@@ -5,8 +5,9 @@ package's numpy modules, and its import hygiene.
   ``eval/golden.GOLDEN_SPEC`` reproduces ``tests/golden/synthetic_f64.npz``
   (p, q, v within 1e-6, P trace rtol 1e-6, num_residualized equal). No JAX
   run is needed.
-* ``data/synthetic.generate`` / ``to_frame_inputs`` and ``eval/ate`` are the
-  port's own copies: they give the JAX package's values exactly.
+* ``data/synthetic.generate`` / ``to_frame_inputs``, ``data/render`` and
+  ``eval/ate`` are the port's own copies: they give the JAX package's values
+  exactly.
 * The package imports neither ``jax`` nor ``msckf_mono_tpu``.
 """
 
@@ -20,10 +21,12 @@ import numpy as np
 import pytest
 import torch
 
+from msckf_mono_tpu.data import render as jrender
 from msckf_mono_tpu.data import synthetic as jsyn
 from msckf_mono_tpu.eval import ate as jate
 from msckf_mono_tpu.eval import golden as jgolden
 from msckf_mono_tpu_torch.core import filter as tfilter
+from msckf_mono_tpu_torch.data import render as trender
 from msckf_mono_tpu_torch.data import synthetic as tsyn
 from msckf_mono_tpu_torch.eval import ate as tate
 from msckf_mono_tpu_torch.parallel import sharding as tsharding
@@ -63,6 +66,24 @@ def test_synthetic_copy_matches_jax():
         np.testing.assert_array_equal(g, w, err_msg=f.name)
 
 
+def test_render_copy_matches_jax():
+    """Rendered frames of the full camera equal the JAX package's bit for bit,
+    on the static background and on the per-frame noise one."""
+    jc, tc = tp.configs()
+    _, jw = jsyn.generate(jc, n_frames=3, seed=2, pixel_noise=0.0, n_landmarks=500, return_world=True)
+    _, tw = tsyn.generate(tc, n_frames=3, seed=2, pixel_noise=0.0, n_landmarks=500, return_world=True)
+    for f in range(3):
+        want = jrender.render_frame(jc, jw, f)
+        got = trender.render_frame(tc, tw, f)
+        assert got.dtype == want.dtype == np.float32 and got.shape == (480, 752)
+        np.testing.assert_array_equal(got, want, err_msg=f"frame {f}")
+    np.testing.assert_array_equal(trender.render_frame(tc, tw, 1, background="dynamic"),
+                                  jrender.render_frame(jc, jw, 1, background="dynamic"))
+    for f in range(3):
+        for g, w in zip(trender.project_frame(tc, tw, f), jrender.project_frame(jc, jw, f)):
+            np.testing.assert_array_equal(g, w)
+
+
 def test_ate_copy_matches_jax():
     rng = np.random.default_rng(0)
     gt = np.cumsum(rng.normal(size=(50, 3)), axis=0)
@@ -83,7 +104,9 @@ MODULES = sorted(
 
 def test_import_hygiene():
     """Every port module imports with jax and the JAX package made unimportable."""
-    assert "msckf_mono_tpu_torch.ops.psd_cuda" in MODULES and len(MODULES) >= 25
+    for kernel in ("psd_cuda", "fast_cuda", "klt_cuda"):
+        assert f"msckf_mono_tpu_torch.ops.{kernel}" in MODULES
+    assert len(MODULES) >= 36
     code = (
         "import sys, importlib\n"
         "for name in ('jax', 'jaxlib', 'flax', 'msckf_mono_tpu'):\n"
