@@ -7,12 +7,19 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 
 1. [device]: the card's name, and its name and power limit from nvidia-smi;
 2. [build]: compiles csrc/{psd_gamma,fast_nms,klt_level}.cu with nvcc for
-   sm_90a (-Xptxas -v), one nvcc process per source, all at once;
+   sm_90a (-Xptxas -v), one nvcc process per source, all at once (or reuses
+   the libraries and their nvcc reports from an earlier build), and prints
+   every kernel instance's registers, stack frame and spills; then the
+   launchers' plans for R in 1..400 and windows 3..151, each within the
+   card's shared memory a block;
 3. [kernel]: the gamma kernel against its plain PyTorch version on the card at
-   R in {1, 13, 41, 53} (one lane set to -I must give +inf; NaN in the upper
-   triangle must change nothing; R = 121 must raise), then times at the main
-   path's shapes: the kernel, the plain version, the nearest library calls
-   (cholesky_ex + solve_triangular), and the memory bound;
+   R in {1, 2, 3, 13, 41, 53, 121, 200} and at R = 345, above what a block's
+   shared memory holds (the device-memory scratch variant): within 1e-3
+   relative, identical gate decisions, one lane set to -I gives +inf, NaN in
+   the upper triangle changes nothing; then times at the filter path's and
+   the image path's shapes: the kernel (one call, and device time), the
+   plain version, the nearest library calls (cholesky_ex + solve_triangular),
+   and the memory bound;
 4. [main], [profile], [gate]: the filter path on precomputed tracks, the
    serving configuration of bench.py (fused updates, caps 2/22, max_staged 8)
    on a 1024-filter fleet over the 200-frame synthetic sequence: make_fleet ->
@@ -25,9 +32,10 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    bit for bit on random and rendered images at (1, 480, 752), (64, 480, 752)
    and (1, 201, 300); the LK-level kernel against its plain version on
    rendered frame pairs at all four pyramid level shapes, shared (Bi = 1,
-   B = 256, F = 64) and per-stream (Bi = B = 64): good flags identical, and
-   positions within 0.05 px on >= 99.9% of good features (the rest counted);
-   then FAST's times at the main path's shapes;
+   B = 256, F = 64) and per-stream (Bi = B = 64), and at windows of 51, 71
+   and 101 px: good flags identical, and positions within 0.05 px on
+   >= 99.9% of good features (the rest counted); then FAST's times at the
+   main path's shapes;
 6. [image]: the image-in-the-loop path of bench.py's --images configuration,
    256 filters sharing one rendered 480 x 752 camera over 200 frames
    (make_fleet -> init_frontend_state -> batched_run_images_shared):
@@ -37,10 +45,16 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    profile of frames 30-32, and a run of frames 30-33 that records every FAST
    and KLT launch's inputs and outputs and replays them through the plain
    versions (FAST exact, KLT as in phase 5), counting the live LK iterations
-   for the KLT bound, and timing the KLT kernel on those inputs;
-8. [image-indep]: 64 independent streams (per-stream brightness offset
-   (b mod 7) * 0.5, as bench.py) over 40 frames (batched_run_images), with
-   ATE(filter 0) and launch counts.
+   and the pixels read for the KLT bound, and timing the KLT kernel on those
+   inputs;
+8. [image-indep], [replay-indep]: 64 independent streams (per-stream
+   brightness offset (b mod 7) * 0.5, as bench.py) over 40 frames
+   (batched_run_images), with ATE(filter 0) and launch counts; then the
+   replay of phase 7 on frames 20-23 of that path.
+
+Kernel times: ``ms`` is one call's CUDA-event time, the host's launch work
+included (the median of 25 calls); ``device_ms`` is device time per launch
+(a CUDA graph of 20 back-to-back calls, replayed; CUDA events).
 
 The line before the last is a JSON object with the kernels' numbers; the
 last line is {"ok": true, "device": {...}}. Without CUDA it exits non-zero
@@ -70,6 +84,13 @@ REPLACES = "msckf_mono_tpu/ops/psd_pallas.py:43"
 SOURCE = "msckf_mono_tpu_torch/csrc/psd_gamma.cu"
 KLT_ATOL_PX = 0.05
 KLT_CLOSE_SHARE = 0.999
+# Windows the KLT kernel is checked at besides the main path's 21 px.
+KLT_WIDE_WINDOWS = (51, 71, 101)
+# The gamma sizes checked against the plain version: (R, n). 121 and 200 run
+# one block a system, 345 the device-memory scratch variant.
+GAMMA_CASES = [(1, 7), (1, 49152), (1, 12288), (2, 7), (2, 2048), (3, 7), (3, 2048), (13, 7),
+               (13, 8192), (41, 7), (41, 8192), (41, 2048), (53, 7), (53, 8192), (121, 64),
+               (200, 16), (345, 3)]
 # Operations a pixel of the FAST kernel: 16 differences and 16 negations,
 # per polarity 48 + 16 mins (arc minima by doubling) and 15 maxes, the max of
 # the two polarities, the threshold test, 8 NMS maxes and 2 NMS tests.
@@ -79,12 +100,52 @@ FAST_OPS_PER_PIXEL = 16 + 16 + 2 * (48 + 16 + 15) + 1 + 1 + 8 + 2
 KLT_FLOPS_PER_SAMPLE = 20
 
 
+SMEM_OPTIN_H100 = 232448    # a block's shared memory on an H100, where torch does not say
+
+
 def klt_samples(window, n_valid, live):
     """Bilinear samples one LK level needs: the template and its central
     differences at x +- 1, y +- 1 lie on one integer grid around the point, so
     they take (w + 2)^2 - 4 distinct samples a valid feature; then w^2 a live
     Gauss-Newton iteration."""
     return ((window + 2) ** 2 - 4) * n_valid + window ** 2 * live
+
+
+def klt_level_bytes(args, window, live):
+    """Bytes one LK level must move, each once: the pixels its samples read,
+    the points and flags in and the points and flags out. Of the previous
+    level, the union over the valid features of the template's patch (the
+    clamped x0 and y0 of the window +- 1, plus one); of the current level,
+    the union over the features that iterate (``live`` > 0) of the first
+    iteration's patch (the window, plus one). Returns (bytes, pixels read)."""
+    import torch
+
+    img_prev, _, pts_prev, pts_cur, valid = args
+    Bi, H, W = img_prev.shape
+    B, F = valid.shape
+    half = window // 2
+    image = torch.arange(B, device=valid.device)[:, None].expand(B, F)   # (B, F): the image read
+    if Bi == 1:
+        image = torch.zeros_like(image)
+
+    def union(pts, mask, reach):
+        b, p = image[mask], pts[mask]
+
+        def span(c, size):
+            lo = torch.clamp(torch.floor(c - reach), 0, size - 2).long()
+            return lo, torch.clamp(torch.floor(c + reach), 0, size - 2).long() + 1
+
+        (x0, x1), (y0, y1) = span(p[:, 0], W), span(p[:, 1], H)
+        # a 2-D difference array of the rectangles, summed up both axes
+        d = torch.zeros(Bi * (H + 1) * (W + 1), dtype=torch.int32, device=valid.device)
+        for ys, xs, v in ((y0, x0, 1), (y0, x1 + 1, -1), (y1 + 1, x0, -1), (y1 + 1, x1 + 1, 1)):
+            d.index_add_(0, (b * (H + 1) + ys) * (W + 1) + xs,
+                         torch.full(ys.shape, v, dtype=torch.int32, device=d.device))
+        cover = d.view(Bi, H + 1, W + 1).cumsum(1).cumsum(2)[:, :H, :W]
+        return int((cover > 0).sum())
+
+    pixels = union(pts_prev, valid, half + 1.0) + union(pts_cur, live > 0, float(half))
+    return 4 * pixels + B * F * (2 * 8 + 1 + 8 + 1), pixels
 
 
 def log(msg):
@@ -110,14 +171,54 @@ def phase_device(torch):
     return name, smi
 
 
+def _demangle(names):
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True, text=True,
+                             timeout=30, check=True).stdout.splitlines()
+        return out if len(out) == len(names) else names
+    except (OSError, subprocess.SubprocessError):
+        return names
+
+
 def phase_build():
+    """Build every kernel; returns {source: [ptxas usage of each instance]}."""
     from msckf_mono_tpu_torch.ops import cuda_build, fast_cuda, klt_cuda, psd_cuda
 
     t0 = time.time()
-    paths = cuda_build.build_all(verbose=True)
+    logs = cuda_build.build_all()
     for mod in (psd_cuda, fast_cuda, klt_cuda):
         mod._load()
-    log(f"[build] {', '.join(p.name for p in paths)} in {time.time() - t0:.2f} s")
+    log(f"[build] {', '.join(cuda_build.library_path(n).name for n in logs)} in "
+        f"{time.time() - t0:.2f} s")
+    usage = {}
+    for name, text in logs.items():
+        rows = cuda_build.ptxas_usage(text)
+        for row, pretty in zip(rows, _demangle([r["kernel"] for r in rows])):
+            row["kernel"] = pretty.replace("(anonymous namespace)::", "").split("(")[0]
+            log(f"[build] {name}: {row['kernel']}: {row['registers']} registers, "
+                f"{row['stack_bytes']} B stack frame, {row['spill_stores']} B spill stores, "
+                f"{row['spill_loads']} B spill loads")
+        check(bool(rows), f"[build] no ptxas report for {name}.cu")
+        usage[name] = rows
+    # The launchers pick each size's variant and shared memory; every plan
+    # must fit a block of this card.
+    import torch
+
+    limit = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin",
+                    SMEM_OPTIN_H100)
+    for what, sizes, plan in (("gamma R", range(1, 401), psd_cuda.launch_plan),
+                              ("KLT window", range(3, 152, 2), klt_cuda.launch_plan)):
+        spans = []
+        for size in sizes:
+            p = plan(size)
+            check(p.smem_bytes <= limit, f"[build] {what} {size}: plan {p} exceeds {limit} B")
+            if spans and spans[-1][0] == p.variant:
+                spans[-1][2] = size
+            else:
+                spans.append([p.variant, size, size])
+        log(f"[build] {what} plans, each within {limit} B of shared memory a block: "
+            + ", ".join(f"{v} {a}-{b}" for v, a, b in spans))
+    return usage
 
 
 def _make_systems(torch, rng, n, R):
@@ -126,6 +227,34 @@ def _make_systems(torch, rng, n, R):
     S = X @ X.transpose(-1, -2) / R + 1e-5 * torch.eye(R, dtype=X.dtype, device="cuda")
     r = torch.as_tensor(rng.normal(size=(n, R)), device="cuda")
     return S.float().contiguous(), r.float().contiguous()
+
+
+def _graph_ms(torch, fn, reps=20, rounds=5):
+    """Device time per call: ``reps`` calls captured in one CUDA graph, the
+    graph replayed ``rounds`` times, CUDA events around each replay (median).
+    The host's launch work is outside the measurement."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return float(np.median(times))
 
 
 def _time_ms(torch, fn, reps=25):
@@ -148,18 +277,8 @@ def phase_kernel(torch):
     from msckf_mono_tpu_torch.utils.chi2 import gate_threshold
 
     rng = np.random.default_rng(0)
-    with_err = None
-    try:
-        psd_cuda.gamma_psd(torch.eye(121, device="cuda")[None], torch.ones(1, 121, device="cuda"))
-    except RuntimeError as e:
-        with_err = str(e)
-    check(with_err is not None and "R=121" in with_err,
-          f"R=121, whose block cannot fit in shared memory, gave {with_err!r}")
-    # The launches below show that the failed one left no error behind.
-    log(f"[kernel] R=121 raises: {with_err}")
-    cases = [(1, 7), (1, 49152), (13, 7), (13, 8192), (41, 7), (41, 8192), (53, 7), (53, 8192)]
     worst = {}
-    for R, n in cases:
+    for R, n in GAMMA_CASES:
         S, r = _make_systems(torch, rng, n, R)
         S[1] = -torch.eye(R, device="cuda")
         got = psd_cuda.gamma_psd(S, r)
@@ -181,16 +300,19 @@ def phase_kernel(torch):
         same = (got < thr) == (want < thr)
         check(bool(torch.all(same)), f"R={R} n={n}: gate decisions differ on "
               f"{int((~same).sum())} lanes")
-        log(f"[kernel] R={R:2d} n={n:5d}: max rel err {rel:.2e}, max abs err {abs_err:.3e}, "
-            f"gate decisions identical on {n}/{n} lanes ({int((want < thr).sum())} pass; "
-            f"{int(near.sum())} within 1e-3 of the threshold), indefinite lane +inf, "
-            f"upper triangle unused")
+        log(f"[kernel] R={R:3d} n={n:5d} ({psd_cuda.launch_plan(R).variant}): max rel err "
+            f"{rel:.2e}, max abs err {abs_err:.3e}, gate decisions identical on {n}/{n} lanes "
+            f"({int((want < thr).sum())} pass; {int(near.sum())} within 1e-3 of the threshold), "
+            f"indefinite lane +inf, upper triangle unused")
         worst[(R, n)] = abs_err
 
     per_shape = []
-    for R, n, where in ((41, 8192, "marginalize"), (1, 49152, "prune")):
+    shapes = ((41, 8192, "marginalize"), (1, 49152, "prune"),
+              (41, 2048, "marginalize, image path"), (1, 12288, "prune, image path"))
+    for R, n, where in shapes:
         S, r = _make_systems(torch, rng, n, R)
         ms = _time_ms(torch, lambda: psd_cuda.gamma_psd(S, r))
+        device_ms = _graph_ms(torch, lambda: psd_cuda.gamma_psd(S, r))
         plain_ms = _time_ms(torch, lambda: psd_cuda.gamma_psd_plain(S, r))
 
         def library():
@@ -204,13 +326,14 @@ def phase_kernel(torch):
         flops = n * (R ** 3 / 3.0 + R ** 2)
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = flops / F32_FLOPS_PER_S * 1e3
-        shape = dict(R=R, n=n, stage=where, ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                     bound_ms=max(bytes_ms, ops_ms),
+        shape = dict(R=R, n=n, stage=where, variant=psd_cuda.launch_plan(R).variant, ms=ms,
+                     device_ms=device_ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(bytes_ms, ops_ms),
                      bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                     max_abs_err=worst[(R, n)])
+                     max_abs_err=worst.get((R, n), 0.0))
         per_shape.append(shape)
-        log(f"[kernel] {where} shape R={R} n={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"library {library_ms:.4f} ms, bound {shape['bound_ms']:.4f} ms "
+        log(f"[kernel] {where} shape R={R} n={n}: kernel {ms:.4f} ms a call, {device_ms:.4f} ms "
+            f"on the device, plain {plain_ms:.4f} ms, "
+            f"library {library_ms:.4f} ms, bound {shape['bound_ms']:.5f} ms "
             f"({shape['bound_by']}; {nbytes / 1e6:.1f} MB)")
     return per_shape
 
@@ -437,10 +560,12 @@ def phase_image_kernels(torch, imgs):
         bound_ms, bound_by = _fast_bound(Bi, H, W)
         fast[shape_name] = dict(
             shape=list(t.shape), ms=_time_ms(torch, lambda: fast_cuda.fast_nms_score(t, 20.0)),
+            device_ms=_graph_ms(torch, lambda: fast_cuda.fast_nms_score(t, 20.0)),
             plain_ms=_time_ms(torch, lambda: fast_cuda.fast_nms_score_plain(t, 20.0), reps=10),
             bound_ms=bound_ms, bound_by=bound_by)
-        log(f"[kernel] FAST {shape_name} {tuple(t.shape)}: kernel {fast[shape_name]['ms']:.4f} ms, "
-            f"plain {fast[shape_name]['plain_ms']:.4f} ms, bound {bound_ms:.4f} ms ({bound_by})")
+        log(f"[kernel] FAST {shape_name} {tuple(t.shape)}: kernel {fast[shape_name]['ms']:.4f} ms "
+            f"a call, {fast[shape_name]['device_ms']:.4f} ms on the device, plain "
+            f"{fast[shape_name]['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
 
     # KLT on rendered frame pairs: features at detected corners of frame 30,
     # each filter with its own jitter, predicted at zero motion plus noise.
@@ -469,6 +594,28 @@ def phase_image_kernels(torch, imgs):
             torch.cuda.synchronize()
             want = klt_cuda.track_level_plain(*args, **kw)
             tag = f"KLT {'shared' if shared else 'per-stream'} level {lvl} {tuple(p0.shape)}"
+            n, close, rest, rest_max, mx = _klt_compare(torch, tag, got, want)
+            worst = max(worst, mx)
+            log(f"[kernel] {tag}, B={B}, F={F}: good flags identical ({n} good of {B * F}); "
+                f"{close}/{n} within {KLT_ATOL_PX} px (max abs err {mx:.2e} px), {rest} beyond "
+                f"(max {rest_max:.4f} px)")
+
+    # Wider windows than the main path's: the same frame pair and points,
+    # shared images, B = 64 (the plain version's window tensors grow as w^2).
+    B, F = INDEP_BATCH, 64
+    pts0, pred0 = pts0[:B], pred0[:B]
+    for window in KLT_WIDE_WINDOWS:
+        plan = klt_cuda.launch_plan(window)
+        for lvl in range(4):
+            s = 2.0 ** lvl
+            pts = torch.as_tensor(pts0 / s, dtype=torch.float32, device="cuda")
+            pred = torch.as_tensor(pred0 / s, dtype=torch.float32, device="cuda")
+            args = (pyr0[lvl], pyr1[lvl], pts, pred, valid[:B].contiguous())
+            kw = dict(window_size=window, max_iters=30, eps=1.0, min_eigen_threshold=1e-5)
+            got = klt_cuda.track_level(*args, **kw)
+            torch.cuda.synchronize()
+            want = klt_cuda.track_level_plain(*args, **kw)
+            tag = f"KLT window {window} ({plan.variant}) level {lvl} {tuple(pyr0[lvl].shape)}"
             n, close, rest, rest_max, mx = _klt_compare(torch, tag, got, want)
             worst = max(worst, mx)
             log(f"[kernel] {tag}, B={B}, F={F}: good flags identical ({n} good of {B * F}); "
@@ -575,22 +722,25 @@ def phase_image(torch, tag, seq, imgs, B, independent):
           f"{T}, {4 * T}, {2 * T}")
     result = dict(B=B, T=T, seconds=seconds, steps_per_s=B * T / seconds, ate0=ate0,
                   peak_gib=peak, launches=dict(fast=fast_n, klt=klt_n, gamma=gamma_n), **m)
-    if independent:
-        return result
 
+    # Mid-sequence frames from the path's own state after frame lo.
     lo = min(30, T // 2)
     mid, fmid, _ = run(*make(), tree_map(lambda x: x[:lo], frames))
-    prof_frames = tree_map(lambda x: x[lo:lo + PROFILE_FRAMES], frames)
-    phase_profile(torch, "image-profile", lambda: run(mid, fmid, prof_frames), 1e3 * seconds / T)
-    result["replay"] = phase_replay(torch, run, mid, fmid, tree_map(lambda x: x[lo:lo + GATE_FRAMES], frames))
+    if not independent:
+        prof_frames = tree_map(lambda x: x[lo:lo + PROFILE_FRAMES], frames)
+        phase_profile(torch, "image-profile", lambda: run(mid, fmid, prof_frames),
+                      1e3 * seconds / T)
+    result["replay"] = phase_replay(torch, "replay-indep" if independent else "replay", run, mid,
+                                    fmid, tree_map(lambda x: x[lo:lo + GATE_FRAMES], frames))
     return result
 
 
-def phase_replay(torch, run, state, fstate, frames):
+def phase_replay(torch, tag, run, state, fstate, frames):
     """FAST and KLT against their plain versions on the image path's own
     inputs: every launch of a few frames records its inputs and outputs, which
     then go through the plain versions. Also counts the live LK iterations
-    (for the KLT bound) and times the KLT kernel on the first frame's inputs."""
+    and the pixels read (for the KLT bound) and times the KLT kernel on the
+    first frame's inputs."""
     from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda
 
     fast, track = fast_cuda.fast_nms_score, klt_cuda.track_level
@@ -621,8 +771,8 @@ def phase_replay(torch, run, state, fstate, frames):
     for imgs, thr, got in fast_calls:
         want = fast_cuda.fast_nms_score_plain(imgs, thr)
         fast_err = max(fast_err, float((got - want).abs().max()))
-        check(torch.equal(got, want), f"[replay] FAST differs on {int((got != want).sum())} pixels")
-    log(f"[replay] FAST: {len(fast_calls)} launches on {tuple(fast_calls[0][0].shape)}, each equal "
+        check(torch.equal(got, want), f"[{tag}] FAST differs on {int((got != want).sum())} pixels")
+    log(f"[{tag}] FAST: {len(fast_calls)} launches on {tuple(fast_calls[0][0].shape)}, each equal "
         f"to the plain version bit for bit ({sum(int((c[2] > 0).sum()) for c in fast_calls)} corners)")
 
     levels = []
@@ -630,7 +780,7 @@ def phase_replay(torch, run, state, fstate, frames):
     for i, (args, kw, got) in enumerate(klt_calls):
         want = klt_cuda.track_level_plain(*args, **kw, count_iters=True)
         lvl = 3 - i % 4
-        n, close, rest, rest_max, mx = _klt_compare(torch, f"[replay] KLT call {i} level {lvl}",
+        n, close, rest, rest_max, mx = _klt_compare(torch, f"[{tag}] KLT call {i} level {lvl}",
                                                     got, want[:2])
         worst = max(worst, mx)
         valid = args[4]
@@ -639,39 +789,48 @@ def phase_replay(torch, run, state, fstate, frames):
         live = int(want[2].sum())
         Bi, H, W = args[0].shape
         B, F = valid.shape
-        nbytes = 2 * Bi * H * W * 4 + B * F * (2 * 8 + 1 + 8 + 1)
+        nbytes, pixels = klt_level_bytes(args, window, want[2])
         flops = KLT_FLOPS_PER_SAMPLE * klt_samples(window, n_valid, live)
         worst_flops = KLT_FLOPS_PER_SAMPLE * klt_samples(window, n_valid, kw["max_iters"] * n_valid)
         levels.append(dict(call=i, level=lvl, shape=[Bi, H, W], good=n, close=close, rest=rest,
-                           rest_max=rest_max, valid=n_valid, live_iters=live,
+                           rest_max=rest_max, valid=n_valid, live_iters=live, pixels_read=pixels,
                            bytes=nbytes, flops=flops, flops_30_iters=worst_flops))
-        log(f"[replay] KLT frame {i // 4} level {lvl} {(Bi, H, W)}: {n_valid} valid, {n} good, "
+        log(f"[{tag}] KLT frame {i // 4} level {lvl} {(Bi, H, W)}: {n_valid} valid, {n} good, "
             f"flags identical, {close}/{n} within {KLT_ATOL_PX} px (max abs err {mx:.2e} px), "
             f"{rest} beyond (max {rest_max:.4f} px); {live} live iterations "
-            f"({live / max(n, 1):.2f} a good feature)")
+            f"({live / max(n, 1):.2f} a good feature); {pixels} pixels read of "
+            f"{2 * Bi * H * W} in the two levels")
 
     # times and bounds on the first recorded frame's launches (4 levels)
-    klt = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_ms_30_iters=0.0, per_level=[])
+    klt = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_ms_30_iters=0.0,
+               per_level=[])
     for (args, kw, _), info in zip(klt_calls[:4], levels[:4]):
         ms = _time_ms(torch, lambda: track(*args, **kw))
+        device_ms = _graph_ms(torch, lambda: track(*args, **kw))
         plain_ms = _time_ms(torch, lambda: klt_cuda.track_level_plain(*args, **kw), reps=5)
         bytes_ms = info["bytes"] / HBM_BYTES_PER_S * 1e3
         ops_ms = info["flops"] / F32_FLOPS_PER_S * 1e3
         bound_ms = max(bytes_ms, ops_ms)
         bound_30 = max(bytes_ms, info["flops_30_iters"] / F32_FLOPS_PER_S * 1e3)
         klt["ms"] += ms
+        klt["device_ms"] += device_ms
         klt["plain_ms"] += plain_ms
         klt["bound_ms"] += bound_ms
         klt["bound_ms_30_iters"] += bound_30
         klt["per_level"].append(dict(level=info["level"], shape=info["shape"], ms=ms,
-                                     plain_ms=plain_ms, bound_ms=bound_ms, bound_ms_30_iters=bound_30,
+                                     device_ms=device_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                     bound_ms_30_iters=bound_30,
                                      bound_by="bytes" if bytes_ms >= ops_ms else "operations",
-                                     valid=info["valid"], live_iters=info["live_iters"]))
-        log(f"[replay] KLT level {info['level']} {tuple(info['shape'])}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({info['live_iters']} live iterations; "
+                                     valid=info["valid"], live_iters=info["live_iters"],
+                                     pixels_read=info["pixels_read"]))
+        log(f"[{tag}] KLT level {info['level']} {tuple(info['shape'])}: kernel {ms:.4f} ms a "
+            f"call, {device_ms:.4f} ms on the device, plain {plain_ms:.4f} ms, bound "
+            f"{bound_ms:.5f} ms ({'bytes' if bytes_ms >= ops_ms else 'operations'}: "
+            f"{info['bytes'] / 1e6:.2f} MB, {info['live_iters']} live iterations; "
             f"{bound_30:.4f} ms if all {info['valid']} valid features ran 30)")
-    klt["bound_by"] = "operations" if all(p["bound_by"] == "operations" for p in klt["per_level"]) \
-        else "bytes"
+    # the frame's bound is the sum of the levels'; named by what bounds most of it
+    by_bytes = sum(p["bound_ms"] for p in klt["per_level"] if p["bound_by"] == "bytes")
+    klt["bound_by"] = "bytes" if 2 * by_bytes >= klt["bound_ms"] else "operations"
     klt["max_abs_err"] = worst
     klt["fast_max_abs_err"] = fast_err
     return klt
@@ -723,7 +882,7 @@ def main(argv=None):
     import torch
 
     name, _ = phase_device(torch)
-    phase_build()
+    usage = phase_build()
     per_shape = phase_kernel(torch)
     launches = phase_main(torch, args.batch, args.frames)
 
@@ -731,44 +890,51 @@ def main(argv=None):
     fast_shapes, fast_err, klt_err = phase_image_kernels(torch, imgs)
     shared = phase_image(torch, "image", seq, imgs[:IMAGE_FRAMES], IMAGE_BATCH, False)
     indep = phase_image(torch, "image-indep", seq, imgs[:INDEP_FRAMES], INDEP_BATCH, True)
-    replay = shared["replay"]
+    replay, replay_indep = shared["replay"], indep["replay"]
 
     by_path = {k: {"image": shared["launches"][k], "image-indep": indep["launches"][k]}
                for k in ("fast", "klt", "gamma")}
+    # One filter-path frame step launches gamma once at each of its two shapes.
+    main_shapes = per_shape[:2]
     gamma = {
         "name": "psd_gamma", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
         "launches": launches,
         "launches_by_path": {"main": launches, **by_path["gamma"]},
         "max_abs_err": max(s["max_abs_err"] for s in per_shape),
-        # One frame step launches the kernel once at each main-path shape.
-        "ms": sum(s["ms"] for s in per_shape),
-        "plain_ms": sum(s["plain_ms"] for s in per_shape),
-        "bound_ms": sum(s["bound_ms"] for s in per_shape),
-        "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in per_shape) else "operations",
-        "library_ms": sum(s["library_ms"] for s in per_shape),
+        **{k: sum(s[k] for s in main_shapes)
+           for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
+        "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in main_shapes) else "operations",
         "per_shape": per_shape,
+        "registers": usage["psd_gamma"],
     }
     fast = {
         "name": "fast_nms", "route": "cuda", "source": "msckf_mono_tpu_torch/csrc/fast_nms.cu",
         "replaces": "msckf_mono_tpu/ops/fast_pallas.py:37",
         "launches": shared["launches"]["fast"], "launches_by_path": by_path["fast"],
-        "max_abs_err": max(fast_err, replay["fast_max_abs_err"]),
+        "max_abs_err": max(fast_err, replay["fast_max_abs_err"], replay_indep["fast_max_abs_err"]),
         # one launch a frame on the shared camera's (1, 480, 752) image
-        **{k: fast_shapes["shared"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        **{k: fast_shapes["shared"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                 "bound_by")},
         # no single PyTorch call computes the FAST-10 score
         "library_ms": None,
         "per_shape": fast_shapes,
+        "registers": usage["fast_nms"],
     }
     klt = {
         "name": "klt_level", "route": "cuda", "source": "msckf_mono_tpu_torch/csrc/klt_level.cu",
         "replaces": "msckf_mono_tpu/ops/klt_pallas.py:60",
         "launches": shared["launches"]["klt"], "launches_by_path": by_path["klt"],
-        "max_abs_err": max(klt_err, replay["max_abs_err"]),
+        "max_abs_err": max(klt_err, replay["max_abs_err"], replay_indep["max_abs_err"]),
         # the four level launches of one main-path frame, on its recorded inputs
-        **{k: replay[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "bound_ms_30_iters")},
+        **{k: replay[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                                  "bound_ms_30_iters")},
         # no single PyTorch call computes an LK level
         "library_ms": None,
         "per_level": replay["per_level"],
+        # the same on the 64-stream path's recorded launches (frame 20)
+        "image_indep": {k: replay_indep[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                     "bound_by", "per_level")},
+        "registers": usage["klt_level"],
     }
     paths = {k: {kk: v for kk, v in r.items() if kk != "replay"}
              for k, r in (("image", shared), ("image-indep", indep))}

@@ -9,21 +9,40 @@ than ``eps``. Images are (Bi, H, W) with Bi in {1, B}: a shared image is read
 by every filter, never copied B-fold.
 
 :func:`track_level` launches ``csrc/klt_level.cu`` on CUDA tensors and takes
-:func:`track_level_plain` only for tensors on the CPU. The kernel clamps each
-sample as the plain version does (the TPU kernel's edge-replicated padding is
-not carried over), so the two agree on border features too; they sum the
-window in different orders, so positions agree to float32 rounding, except
-where the ``eps`` stop test fires one iteration apart.
+:func:`track_level_plain` only for tensors on the CPU. The kernel's launcher
+picks its variant and shared memory for a window (:func:`launch_plan` asks
+it), and takes any width. The kernel clamps each sample as the plain
+version does (the TPU kernel's edge-replicated padding is not carried
+over), so the two agree on border features too; they sum the window in
+different orders, so positions agree to float32 rounding, except where the
+``eps`` stop test fires one iteration apart.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
 
 from msckf_mono_tpu_torch.ops import cuda_build
+
+VARIANTS = ("staged", "global")
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How ``csrc/klt_level.cu`` runs one window size, as its launcher picks:
+    ``variant`` "staged" (each warp stages the previous level's patch and
+    keeps T, Ix, Iy in shared memory; ``warps`` features a block,
+    ``smem_bytes`` of dynamic shared memory) or "global" (no shared memory,
+    the template recomputed in every iteration, for windows whose staged
+    plan does not fit a block)."""
+
+    variant: str
+    warps: int
+    smem_bytes: int
 
 
 @functools.lru_cache(maxsize=None)
@@ -34,7 +53,17 @@ def _load() -> ctypes.CDLL:
         + [ctypes.c_int] * 4 + [ctypes.c_float] * 2 + [ctypes.c_void_p]
     )
     lib.klt_level_launch.restype = ctypes.c_int
+    lib.klt_level_plan.argtypes = [ctypes.c_int] + [ctypes.POINTER(ctypes.c_int)] * 2
+    lib.klt_level_plan.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(window_size: int) -> LaunchPlan:
+    """The launcher's plan for a window (asks the built library)."""
+    warps, smem = ctypes.c_int(), ctypes.c_int()
+    variant = _load().klt_level_plan(window_size // 2, ctypes.byref(warps), ctypes.byref(smem))
+    return LaunchPlan(VARIANTS[variant], warps.value, smem.value)
 
 
 def _bilinear(img, y, x):
@@ -158,10 +187,9 @@ def track_level(img_prev, img_cur, pts_prev, pts_cur, valid, window_size: int = 
     out_good = torch.empty_like(valid)
     if B * F == 0:
         return out_pts, out_good
-    lib = _load()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.klt_level_launch(
+    with cuda_build.on_device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _load().klt_level_launch(
             img_prev.data_ptr(), img_cur.data_ptr(), Bi, H, W,
             pts_prev.data_ptr(), pts_cur.data_ptr(), valid.data_ptr(),
             out_pts.data_ptr(), out_good.data_ptr(),
@@ -169,8 +197,8 @@ def track_level(img_prev, img_cur, pts_prev, pts_cur, valid, window_size: int = 
         )
     if rc != 0:
         raise RuntimeError(f"track_level: kernel launch for B={B}, F={F}, window {window_size}, "
-                           f"level {H}x{W} failed with CUDA error {rc} "
-                           f"({cuda_build.error_name('klt_level', rc)})")
+                           f"level {H}x{W}, {launch_plan(window_size)} failed with CUDA error "
+                           f"{rc} ({cuda_build.error_name('klt_level', rc)})")
     _TRACK_LEVEL.launches += 1
     return out_pts, out_good
 

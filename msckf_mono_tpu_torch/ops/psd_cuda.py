@@ -6,14 +6,17 @@ kernel in ``csrc/psd_gamma.cu`` on a CUDA tensor and takes
 tensor it launches the kernel or raises, with no fallback.
 
 The kernel is compiled by ``nvcc`` for ``sm_90a`` on first use
-(``ops/cuda_build.py``). The shared-memory plan lives in the source alone: an
-R whose systems do not fit a block's shared memory (R > 120 on an H100) makes
-the launcher return an error, and :func:`gamma_psd` raises.
+(``ops/cuda_build.py``). Its launcher picks the variant and shared memory
+from R: one thread a system for R <= 4, one warp a system with its rows in
+registers for R <= 63, one block a system while its packed triangle fits a
+block's shared memory (R <= 338), and above that a device-memory scratch
+copy that the wrapper allocates. No R raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from pathlib import Path
 
@@ -29,13 +32,38 @@ def library_path() -> Path:
     return cuda_build.library_path("psd_gamma")
 
 
+VARIANTS = ("thread", "warp", "block", "scratch")
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How ``csrc/psd_gamma.cu`` runs systems of one size R, as its launcher
+    picks: ``variant`` (one of VARIANTS), ``smem_bytes`` of dynamic shared
+    memory a block and ``scratch_bytes`` of device memory a system."""
+
+    variant: str
+    smem_bytes: int
+    scratch_bytes: int
+
+
 @functools.lru_cache(maxsize=None)
 def _load() -> ctypes.CDLL:
     lib = cuda_build.load("psd_gamma")
-    lib.psd_gamma_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                                     ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    lib.psd_gamma_launch.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2)
     lib.psd_gamma_launch.restype = ctypes.c_int
+    lib.psd_gamma_plan.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int),
+                                   ctypes.POINTER(ctypes.c_longlong)]
+    lib.psd_gamma_plan.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def launch_plan(R: int) -> LaunchPlan:
+    """The launcher's plan for R (asks the built library)."""
+    smem, scratch = ctypes.c_int(), ctypes.c_longlong()
+    variant = _load().psd_gamma_plan(R, ctypes.byref(smem), ctypes.byref(scratch))
+    return LaunchPlan(VARIANTS[variant], smem.value, scratch.value)
 
 
 def gamma_psd_plain(Smat: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
@@ -71,13 +99,16 @@ def gamma_psd(Smat: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     out = torch.empty(batch_shape, dtype=torch.float32, device=Smat.device)
     if n == 0:
         return out
-    lib = _load()
-    with torch.cuda.device(Smat.device):
-        stream = torch.cuda.current_stream(Smat.device).cuda_stream
-        rc = lib.psd_gamma_launch(Smat.data_ptr(), r.data_ptr(), out.data_ptr(), n, R, stream)
+    scratch_bytes = launch_plan(R).scratch_bytes
+    scratch = (torch.empty(n * scratch_bytes // 4, dtype=torch.float32, device=Smat.device)
+               if scratch_bytes else None)
+    with cuda_build.on_device(Smat.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = _load().psd_gamma_launch(Smat.data_ptr(), r.data_ptr(), out.data_ptr(), n, R,
+                                      scratch.data_ptr() if scratch is not None else None, stream)
     if rc != 0:
-        raise RuntimeError(f"gamma_psd: kernel launch for n={n}, R={R} failed with CUDA "
-                           f"error {rc} ({cuda_build.error_name('psd_gamma', rc)})")
+        raise RuntimeError(f"gamma_psd: kernel launch for n={n}, R={R}, {launch_plan(R)} failed "
+                           f"with CUDA error {rc} ({cuda_build.error_name('psd_gamma', rc)})")
     _GAMMA_PSD.launches += 1
     return out
 

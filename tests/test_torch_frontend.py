@@ -11,9 +11,10 @@ Pallas kernels in interpret mode. Tolerances:
   interpret mode: atol 1e-4, as tests/test_fast_pallas.py;
 * detect_features on one shared image with per-filter occupancy: exact;
 * one LK level: f64 1e-9 with good flags exact against klt._track_level
-  (interior and border features); against the Pallas kernel in interpret
-  mode on interior features, right-edge level-2 features included: 0.05 px
-  and good flags exact, as tests/test_klt_pallas.py;
+  (interior and border features, and windows of 51 and 71 px); against the
+  Pallas kernel in interpret mode on interior features, right-edge level-2
+  features included: 0.05 px and good flags exact, as
+  tests/test_klt_pallas.py;
 * the LK pyramid loop (window 51 drops levels): f64 1e-9;
 * reject_outliers and _grid_dedup: exact.
 """
@@ -197,6 +198,28 @@ def test_track_level_plain_matches_jax(lk_pair, where):
     np.testing.assert_array_equal(tgood[0].numpy(), np.asarray(jg))
     np.testing.assert_allclose(tpts[0].numpy(), np.asarray(jp), rtol=0, atol=1e-9)
     assert int(tgood.sum()) >= 3
+
+
+@pytest.mark.parametrize("window", [51, 71])
+def test_track_level_plain_matches_jax_wide_windows(window):
+    """Windows the earlier CUDA kernel refused (wider than 45 px), on a
+    level-1-sized image with features near its borders too."""
+    rng = np.random.default_rng(window)
+    img0 = _smooth_image(rng, (240, 376))
+    img1 = _shift_image(img0, 2.1, -1.4)
+    pts, pred = _lk_points(rng, 10, 240, 376, 20)
+    pts[:2] = [[5.0, 230.0], [370.0, 8.0]]
+    valid = np.ones(len(pts), bool)
+    valid[3] = False
+    jp, jg = jklt._track_level(jnp.asarray(img0, jnp.float64), jnp.asarray(img1, jnp.float64),
+                               jnp.asarray(pts), jnp.asarray(pred), jnp.asarray(valid),
+                               window // 2, 30, 0.03, 1e-4)
+    tpts, tgood = klt_cuda.track_level_plain(
+        _t(img0[None]), _t(img1[None]), _t(pts[None]), _t(pred[None]), torch.as_tensor(valid[None]),
+        window_size=window, max_iters=30, eps=0.03, min_eigen_threshold=1e-4)
+    np.testing.assert_array_equal(tgood[0].numpy(), np.asarray(jg))
+    np.testing.assert_allclose(tpts[0].numpy(), np.asarray(jp), rtol=0, atol=1e-9)
+    assert int(tgood.sum()) >= 5
 
 
 @pytest.mark.parametrize("case", ["interior", "right-edge-level2"])

@@ -12,6 +12,10 @@ and skips without a card. This file imports neither JAX nor the JAX package:
   keeps a stop test that fires one iteration apart below that), with shared
   and per-stream images, F in {1, 7, 64}, right-edge features at pyramid
   level 2 and features whose window leaves the image.
+* KLT takes any window: 51 and 71 px stage in shared memory, 171 px runs
+  the variant without shared memory; the launcher's plan fits the card for
+  every odd window of 3..151 px. Its patch copies are 16, 8 or 4 bytes a
+  lane, by the rows' alignment.
 * The wrappers raise on float64, on CPU/CUDA mixes and on non-contiguous
   input, and count their launches.
 """
@@ -136,6 +140,41 @@ def test_klt_kernel_matches_plain(card, F, shared):
         assert bool(want[1].any())
 
 
+@pytest.mark.parametrize("W", [144, 146, 143])
+def test_klt_kernel_copy_widths(card, W):
+    """Rows 16-byte aligned (W = 144), 8-byte aligned (146) and neither (143):
+    the patch is staged 16, 8 or 4 bytes a lane; features by both side edges
+    too."""
+    rng = np.random.default_rng(W)
+    B, F, H = 2, 12, 90
+    img0 = _smooth_image(rng, (H, W))
+    img1 = _shift_image(img0, 1.1, -0.7)
+    xs = np.concatenate([[0.5, 3.0, W - 4.5, W - 1.2], rng.uniform(0, W, size=F - 4)])
+    pts = np.stack([np.broadcast_to(xs, (B, F)), rng.uniform(5, H - 5, size=(B, F))],
+                   -1).astype(np.float32)
+    pred = (pts + rng.normal(0, 0.8, size=pts.shape)).astype(np.float32)
+    valid = np.ones((B, F), bool)
+    got, want = _klt_pair(card, (img0[None], img1[None]), pts, pred, valid, 21)
+    _assert_klt_close(got, want)
+    assert bool(want[1].any())
+
+
+def test_klt_launch_plan_fits_every_window(card):
+    """Every odd window of 3..151 px gets the staged variant within this
+    card's shared memory a block, or the global variant, which uses none."""
+    limit = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 232448)
+    seen = set()
+    for window in range(3, 152, 2):
+        plan = klt_cuda.launch_plan(window)
+        seen.add(plan.variant)
+        assert plan.smem_bytes <= limit and 1 <= plan.warps <= 4
+        assert plan.variant == "staged" or plan.smem_bytes == 0
+    assert seen == set(klt_cuda.VARIANTS)
+    assert klt_cuda.launch_plan(21) == klt_cuda.LaunchPlan("staged", 4, 4 * 8368)
+    assert klt_cuda.launch_plan(117).variant == "staged"
+    assert klt_cuda.launch_plan(119).variant == "global"
+
+
 def test_klt_kernel_right_edge_level2(card):
     """Right-edge features on a level-2-sized image (120 x 188 of 480 x 752):
     the window base clamp there once took the image ATE from 0.25 to 1.05 m."""
@@ -187,10 +226,27 @@ def test_wrappers_reject_wrong_input(card):
         klt_cuda.track_level(img, img, pts.cpu(), pts, valid)
     with pytest.raises(ValueError):
         klt_cuda.track_level(img.transpose(1, 2).contiguous().transpose(1, 2), img, pts, pts, valid)
-    with pytest.raises(RuntimeError, match="window 51"):
-        klt_cuda.track_level(img, img, pts, pts, valid, window_size=51)
     assert klt_cuda.track_level.launches == before
-    # the failed launches left no error behind
     out, good = klt_cuda.track_level(img, img, pts, pts, valid, window_size=7)
     assert klt_cuda.track_level.launches == before + 1
     assert out.shape == (2, 3, 2) and good.dtype == torch.bool
+
+
+@pytest.mark.parametrize("window", [51, 71, 171])
+def test_klt_kernel_wide_windows(card, window):
+    """Windows of 51 and 71 px (the staged variant) and 171 px (beyond one
+    block's shared memory: the global variant), on a level-1-sized image,
+    against the plain version."""
+    assert klt_cuda.launch_plan(window).variant == ("global" if window == 171 else "staged")
+    rng = np.random.default_rng(window)
+    B, F, H, W = 2, 9, 240, 376
+    img0 = _smooth_image(rng, (H, W))
+    img1 = _shift_image(img0, -2.2, 1.4)
+    pts = np.stack([rng.uniform(0, W, size=(B, F)), rng.uniform(0, H, size=(B, F))],
+                   -1).astype(np.float32)
+    pred = (pts + rng.normal(0, 1.0, size=pts.shape)).astype(np.float32)
+    valid = np.ones((B, F), bool)
+    valid[:, ::4] = False
+    got, want = _klt_pair(card, (img0[None], img1[None]), pts, pred, valid, window)
+    _assert_klt_close(got, want)
+    assert bool(want[1].any())

@@ -2,9 +2,12 @@
 
 On the CPU ``gamma_psd`` runs its plain version; it is held against
 ``psd_pallas.gamma_psd(..., interpret=True)`` on the three cases of
-tests/test_psd_pallas.py (rtol 2e-3, f32). The CUDA kernel itself runs only
-on a card: tests/test_torch_psd_cuda.py and chip_smoke.py hold it against
-the plain version there.
+tests/test_psd_pallas.py (rtol 2e-3, f32), and at R = 121 and 200, sizes the
+earlier kernel could not launch, against the JAX package's jnp gate path
+(``core/update.py`` ``_psd_solve``) in f64 (rtol 1e-8). The CUDA kernel and
+its launcher's plan run only on a card: tests/test_torch_psd_cuda.py and
+chip_smoke.py hold the kernel against the plain version there and check the
+plan for every R in 1..400.
 """
 
 import numpy as np
@@ -12,6 +15,7 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from msckf_mono_tpu.core import update as jupdate
 from msckf_mono_tpu.ops import psd_pallas
 from msckf_mono_tpu_torch.ops import psd_cuda
 
@@ -79,14 +83,25 @@ def test_gamma_rejects_bad_shapes():
         psd_cuda.gamma_psd(torch.zeros(3, 4, 4), torch.zeros(3, 5))
 
 
+@pytest.mark.parametrize("R", [121, 200])
+def test_gamma_plain_large_R_matches_jax_psd_solve(R):
+    """The JAX package's gate off the TPU: rᵀ (cho_solve(S, r)), core/update.py:215."""
+    S, r = _make_systems(np.random.default_rng(R), (3,), R)
+    S, r = S.astype(np.float64), r.astype(np.float64)
+    want = np.asarray(jnp.einsum("sr,sr->s", jnp.asarray(r),
+                                 jupdate._psd_solve(jnp.asarray(S), jnp.asarray(r)[..., None])[..., 0]))
+    got = psd_cuda.gamma_psd(torch.as_tensor(S), torch.as_tensor(r)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-8)
+
+
 def test_shared_memory_plan():
-    """The plan lives in the kernel's source and binds only the kernel: on the
-    CPU an R above the kernel's limit (R > 120) takes the plain version."""
-    S, r = _make_systems(np.random.default_rng(5), (2,), 121)
+    """The plan lives in the kernel's launcher and binds only the kernel: on
+    the CPU an R beyond one block's shared memory (345) takes the plain
+    version, in f64."""
+    S, r = _make_systems(np.random.default_rng(5), (2,), 345)
     S, r = S.astype(np.float64), r.astype(np.float64)
     got = psd_cuda.gamma_psd(torch.as_tensor(S), torch.as_tensor(r)).numpy()
     want = np.einsum("...r,...r->...", r, np.linalg.solve(S, r[..., None])[..., 0])
     np.testing.assert_allclose(got, want, rtol=1e-8)
-    assert "kWarpsPerBlock" in psd_cuda.SOURCE.read_text()
     assert psd_cuda.library_path().parent == psd_cuda.BUILD_DIR
     assert psd_cuda.SOURCE.exists()

@@ -38,7 +38,8 @@ def _make_systems(rng, n, R):
     return S.astype(np.float32), rng.normal(size=(n, R)).astype(np.float32)
 
 
-@pytest.mark.parametrize("R,n", [(1, 49152), (13, 7), (41, 8192), (53, 300), (64, 50)])
+@pytest.mark.parametrize("R,n", [(1, 49152), (2, 333), (3, 1000), (13, 7), (41, 8192),
+                                 (53, 300), (64, 50)])
 def test_kernel_matches_plain_on_card(card, R, n):
     S, r = _make_systems(np.random.default_rng(R), n, R)
     S[1] = -np.eye(R, dtype=np.float32)
@@ -72,12 +73,47 @@ def test_kernel_rejects_wrong_dtype_layout_and_size(card):
         psd_cuda.gamma_psd(S.double().contiguous(), r.double())
     with pytest.raises(ValueError):
         psd_cuda.gamma_psd(S.contiguous(), r.cpu())
-    # R = 121 does not fit a block's shared memory: the launcher's error is
-    # raised, and cleared, so the next launch goes through.
-    with pytest.raises(RuntimeError, match="R=121"):
-        psd_cuda.gamma_psd(torch.eye(121, device=card)[None], torch.ones(1, 121, device=card))
     torch.testing.assert_close(psd_cuda.gamma_psd(S.contiguous(), r),
                                torch.full((3,), 4.0, device=card))
+    # No size is refused: R = 121, which the warp-a-system design could not
+    # fit, runs (one block a system).
+    torch.testing.assert_close(
+        psd_cuda.gamma_psd(2.0 * torch.eye(121, device=card)[None], torch.ones(1, 121, device=card)),
+        torch.full((1,), 60.5, device=card))
+
+
+@pytest.mark.parametrize("R,n", [(121, 40), (345, 3)])
+def test_kernel_takes_any_size(card, R, n):
+    """R = 121 (one block a system) and R = 345, beyond one block's shared
+    memory (the device-memory scratch variant), against the plain version."""
+    assert psd_cuda.launch_plan(R).variant == ("block" if R == 121 else "scratch")
+    S, r = _make_systems(np.random.default_rng(R), n, R)
+    S[1] = -np.eye(R, dtype=np.float32)
+    S, r = torch.as_tensor(S, device=card), torch.as_tensor(r, device=card)
+    got = psd_cuda.gamma_psd(S, r)
+    torch.cuda.synchronize()
+    want = psd_cuda.gamma_psd_plain(S, r)
+    assert torch.isposinf(got[1])
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin)
+    torch.testing.assert_close(got[fin], want[fin], rtol=1e-3, atol=0)
+
+
+def test_launch_plan_fits_every_R(card):
+    """Every R in 1..400 gets a variant whose blocks fit this card's shared
+    memory a block, or the device-memory scratch variant; the boundaries are
+    the ones the source states."""
+    limit = getattr(torch.cuda.get_device_properties(0), "shared_memory_per_block_optin", 232448)
+    seen = set()
+    for R in range(1, 401):
+        plan = psd_cuda.launch_plan(R)
+        seen.add(plan.variant)
+        assert plan.smem_bytes <= limit
+        assert (plan.scratch_bytes > 0) == (plan.variant == "scratch")
+        assert plan.variant not in ("thread", "scratch") or plan.smem_bytes == 0
+    assert seen == set(psd_cuda.VARIANTS)
+    assert [psd_cuda.launch_plan(R).variant for R in (1, 4, 5, 41, 63, 64, 338, 339)] == \
+        ["thread", "thread", "warp", "warp", "warp", "block", "block", "scratch"]
 
 
 def test_kernel_uses_only_the_lower_triangle(card):
