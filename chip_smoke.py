@@ -30,12 +30,14 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    version on them;
 5. [kernel] FAST and KLT: the FAST-10+NMS kernel equal to its plain version
    bit for bit on random and rendered images at (1, 480, 752), (64, 480, 752)
-   and (1, 201, 300); the LK-level kernel against its plain version on
+   and (1, 201, 300), at thresholds 0, 20 and 20.3, and on a view 4 bytes
+   past a 16-byte boundary; the LK-level kernel against its plain version on
    rendered frame pairs at all four pyramid level shapes, shared (Bi = 1,
    B = 256, F = 64) and per-stream (Bi = B = 64), and at windows of 51, 71
    and 101 px: good flags identical, and positions within 0.05 px on
    >= 99.9% of good features (the rest counted); then FAST's times at the
-   main path's shapes;
+   main paths' shapes and on uniform noise, each beside its bound counted on
+   the image (the share of pixels that pass the pre-test);
 6. [image]: the image-in-the-loop path of bench.py's --images configuration,
    256 filters sharing one rendered 480 x 752 camera over 200 frames
    (make_fleet -> init_frontend_state -> batched_run_images_shared):
@@ -44,7 +46,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 7. [image-profile], [replay]: from the shared fleet's state after frame 30, a
    profile of frames 30-32, and a run of frames 30-33 that records every FAST
    and KLT launch's inputs and outputs and replays them through the plain
-   versions (FAST exact, KLT as in phase 5), counting the live LK iterations
+   versions (FAST exact, with each launch's bound and candidate share; KLT as
+   in phase 5), counting the live LK iterations
    and the pixels read for the KLT bound, and timing the KLT kernel on those
    inputs;
 8. [image-indep], [replay-indep]: 64 independent streams (per-stream
@@ -91,10 +94,15 @@ KLT_WIDE_WINDOWS = (51, 71, 101)
 GAMMA_CASES = [(1, 7), (1, 49152), (1, 12288), (2, 7), (2, 2048), (3, 7), (3, 2048), (13, 7),
                (13, 8192), (41, 7), (41, 8192), (41, 2048), (53, 7), (53, 8192), (121, 64),
                (200, 16), (345, 3)]
-# Operations a pixel of the FAST kernel: 16 differences and 16 negations,
-# per polarity 48 + 16 mins (arc minima by doubling) and 15 maxes, the max of
-# the two polarities, the threshold test, 8 NMS maxes and 2 NMS tests.
-FAST_OPS_PER_PIXEL = 16 + 16 + 2 * (48 + 16 + 15) + 1 + 1 + 8 + 2
+# Operations of FAST-10+NMS, counted on what an image needs: the exact
+# four-point pre-test on every interior pixel (4 differences; per polarity
+# 3 mins or maxes and a comparison, min(max(dN, dS), max(dE, dW)) > t and
+# max(min(dN, dS), min(dE, dW)) < -t; their OR), then, on the pixels that pass it, the full segment test
+# (16 differences; per polarity 48 + 16 mins or maxes of the arc extrema by
+# doubling and 15 to take the best arc; the max of the two polarities; the
+# threshold test) and the NMS (8 maxes, 2 tests).
+FAST_PRETEST_OPS = 4 + 2 * (3 + 1) + 1
+FAST_CANDIDATE_OPS = 16 + 2 * (48 + 16 + 15) + 1 + 1 + 8 + 2
 # Flops of one bilinear sample of the LK kernel (clamps, four loads, three
 # lerps) and of the per-cell product-sum it feeds.
 KLT_FLOPS_PER_SAMPLE = 20
@@ -521,11 +529,21 @@ def _klt_compare(torch, tag, got, want):
     return stats
 
 
-def _fast_bound(Bi, H, W):
+def _fast_bound(imgs, threshold):
+    """FAST's bound on these inputs: bytes, one read and one write of each
+    image; operations, the pre-test on every interior pixel and the full test
+    and NMS on the pixels that pass it (fast_cuda.fast_pretest_plain, counted
+    on the card). Returns (bound_ms, bound_by, candidate share of the pixels)."""
+    from msckf_mono_tpu_torch.ops import fast_cuda
+
+    Bi, H, W = imgs.shape
+    interior = Bi * max(H - 6, 0) * max(W - 6, 0)
+    passing = int(fast_cuda.fast_pretest_plain(imgs, threshold).sum())
     nbytes = 2 * Bi * H * W * 4
-    ops = FAST_OPS_PER_PIXEL * Bi * H * W
+    ops = FAST_PRETEST_OPS * interior + FAST_CANDIDATE_OPS * passing
     bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
-    return max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+    return (max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations",
+            passing / (Bi * H * W))
 
 
 def phase_image_kernels(torch, imgs):
@@ -538,34 +556,38 @@ def phase_image_kernels(torch, imgs):
     rng = np.random.default_rng(1)
     frame = imgs[30:31]
     noise = torch.as_tensor(rng.uniform(0, 255, size=(1, 480, 752)).astype(np.float32), device="cuda")
-    cases = [("random", noise), ("rendered", frame),
-             (f"rendered x{INDEP_BATCH}", (frame + 0.5 * (torch.arange(INDEP_BATCH, device="cuda")
-                                                          % 7)[:, None, None]).contiguous()),
-             ("rendered crop", frame[:, 101:302, 211:511].contiguous()),
-             ("random crop", noise[:, :201, :300].contiguous())]
+    batch = (frame + 0.5 * (torch.arange(INDEP_BATCH, device="cuda") % 7)[:, None, None]).contiguous()
+    # a contiguous view 4 bytes past a 16-byte boundary: the 4-byte variant
+    shifted = torch.empty(frame.numel() + 1, device="cuda")[1:].view(frame.shape)
+    shifted.copy_(frame)
+    cases = [("random", noise, 20.0), ("random", noise, 0.0), ("rendered", frame, 20.0),
+             (f"rendered x{INDEP_BATCH}", batch, 20.0),
+             ("rendered crop", frame[:, 101:302, 211:511].contiguous(), 20.0),
+             ("random crop", noise[:, :201, :300].contiguous(), 20.0),
+             ("rendered, misaligned view", shifted, 20.0), ("rendered", frame, 20.3)]
     fast_err = 0.0
-    for name, t in cases:
-        got = fast_cuda.fast_nms_score(t, 20.0)
+    for name, t, thr in cases:
+        got = fast_cuda.fast_nms_score(t, thr)
         torch.cuda.synchronize()
-        want = fast_cuda.fast_nms_score_plain(t, 20.0)
+        want = fast_cuda.fast_nms_score_plain(t, thr)
         fast_err = max(fast_err, float((got - want).abs().max()))
-        check(torch.equal(got, want), f"FAST {name} {tuple(t.shape)}: kernel and plain differ on "
-              f"{int((got != want).sum())} pixels")
-        log(f"[kernel] FAST {name} {tuple(t.shape)}: equal to the plain version bit for bit "
-            f"({int((want > 0).sum())} corners)")
+        check(torch.equal(got, want), f"FAST {name} {tuple(t.shape)} t={thr}: kernel and plain "
+              f"differ on {int((got != want).sum())} pixels")
+        log(f"[kernel] FAST {name} {tuple(t.shape)} t={thr} ({fast_cuda.launch_variant(t)} "
+            f"variant): equal to the plain version bit for bit ({int((want > 0).sum())} corners)")
 
     fast = {}
-    for shape_name, t in (("shared", frame), ("independent", cases[2][1])):
-        Bi, H, W = t.shape
-        bound_ms, bound_by = _fast_bound(Bi, H, W)
+    for shape_name, t in (("shared", frame), ("independent", batch), ("random", noise)):
+        bound_ms, bound_by, share = _fast_bound(t, 20.0)
         fast[shape_name] = dict(
             shape=list(t.shape), ms=_time_ms(torch, lambda: fast_cuda.fast_nms_score(t, 20.0)),
             device_ms=_graph_ms(torch, lambda: fast_cuda.fast_nms_score(t, 20.0)),
             plain_ms=_time_ms(torch, lambda: fast_cuda.fast_nms_score_plain(t, 20.0), reps=10),
-            bound_ms=bound_ms, bound_by=bound_by)
+            bound_ms=bound_ms, bound_by=bound_by, candidate_share=share)
         log(f"[kernel] FAST {shape_name} {tuple(t.shape)}: kernel {fast[shape_name]['ms']:.4f} ms "
             f"a call, {fast[shape_name]['device_ms']:.4f} ms on the device, plain "
-            f"{fast[shape_name]['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by})")
+            f"{fast[shape_name]['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
+            f"{100 * share:.3f}% of the pixels pass the pre-test)")
 
     # KLT on rendered frame pairs: features at detected corners of frame 30,
     # each filter with its own jitter, predicted at zero motion plus noise.
@@ -768,10 +790,13 @@ def phase_replay(torch, tag, run, state, fstate, frames):
           and (after[0] - before[0], after[1] - before[1]) == (n_frames, 4 * n_frames),
           f"{len(fast_calls)} FAST and {len(klt_calls)} KLT calls recorded over {n_frames} frames")
     fast_err = 0.0
-    for imgs, thr, got in fast_calls:
+    for i, (imgs, thr, got) in enumerate(fast_calls):
         want = fast_cuda.fast_nms_score_plain(imgs, thr)
         fast_err = max(fast_err, float((got - want).abs().max()))
         check(torch.equal(got, want), f"[{tag}] FAST differs on {int((got != want).sum())} pixels")
+        bound_ms, bound_by, share = _fast_bound(imgs, thr)
+        log(f"[{tag}] FAST frame {i} {tuple(imgs.shape)}: bound {bound_ms:.5f} ms ({bound_by}); "
+            f"{100 * share:.3f}% of the pixels pass the pre-test")
     log(f"[{tag}] FAST: {len(fast_calls)} launches on {tuple(fast_calls[0][0].shape)}, each equal "
         f"to the plain version bit for bit ({sum(int((c[2] > 0).sum()) for c in fast_calls)} corners)")
 
@@ -914,7 +939,10 @@ def main(argv=None):
         "max_abs_err": max(fast_err, replay["fast_max_abs_err"], replay_indep["fast_max_abs_err"]),
         # one launch a frame on the shared camera's (1, 480, 752) image
         **{k: fast_shapes["shared"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
-                                                 "bound_by")},
+                                                 "bound_by", "candidate_share")},
+        # uniform noise, the pre-test's worst case
+        "random": {k: fast_shapes["random"][k] for k in ("ms", "device_ms", "bound_ms", "bound_by",
+                                                         "candidate_share")},
         # no single PyTorch call computes the FAST-10 score
         "library_ms": None,
         "per_shape": fast_shapes,

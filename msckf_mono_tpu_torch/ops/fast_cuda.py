@@ -9,7 +9,10 @@ Port of ``msckf_mono_tpu/ops/fast_pallas.py``. Contract, as there:
 :func:`fast_nms_score` launches ``csrc/fast_nms.cu`` on a CUDA tensor and
 takes :func:`fast_nms_score_plain` (:func:`fast_score_10` composed with
 :func:`nonmax_3x3`) only for a tensor on the CPU. The kernel does the same
-subtractions and min/max, so it equals the plain version bit for bit.
+subtractions and min/max, so it equals the plain version bit for bit. It
+runs the full segment test only where :func:`fast_pretest_plain`'s exact
+four-point pre-test passes; that function is for the tests and for
+``chip_smoke.py`` (the candidate share in the kernel's bound).
 """
 
 from __future__ import annotations
@@ -28,7 +31,17 @@ def _load() -> ctypes.CDLL:
     lib.fast_nms_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                                     ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     lib.fast_nms_launch.restype = ctypes.c_int
+    lib.fast_nms_plan.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    lib.fast_nms_plan.restype = ctypes.c_int
     return lib
+
+
+def launch_variant(imgs: torch.Tensor) -> str:
+    """The variant ``csrc/fast_nms.cu``'s launcher runs for a contiguous
+    (Bi, H, W) image on the card (asks the built library): "vector" (16-byte
+    copies and stores: the base pointer 16-byte aligned and W a multiple of
+    4) or "scalar" (4 bytes)."""
+    return "vector" if _load().fast_nms_plan(imgs.data_ptr(), imgs.shape[-1]) else "scalar"
 
 
 # (dx, dy) offsets of the 16-pixel Bresenham circle, in circular order.
@@ -81,6 +94,26 @@ def nonmax_3x3(score, mask):
     return mask & (s >= neighborhood) & (s > -torch.inf)
 
 
+def fast_pretest_plain(imgs: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
+    """(Bi, H, W) -> bool (Bi, H, W): the kernel's exact pre-test.
+
+    A score above ``threshold`` needs an arc of 10 contiguous circle pixels
+    whose differences all exceed it, or all lie below its negation; any 10
+    contiguous positions of the 16 hold two neighbouring compass points of
+    d_0, d_4, d_8, d_12. So a pixel passes where some neighbouring compass
+    pair has both d > t or both d < -t, and is >= 3 px from every edge;
+    ``fast_score_10``'s mask lies inside this map for any threshold.
+    """
+    H, W = imgs.shape[-2:]
+    d = [torch.roll(imgs, shifts=(-dy, -dx), dims=(-2, -1)) - imgs for dx, dy in FAST_OFFSETS[::4]]
+
+    def pair(m):
+        return (m[0] & m[1]) | (m[1] & m[2]) | (m[2] & m[3]) | (m[3] & m[0])
+
+    passes = pair([x > threshold for x in d]) | pair([x < -threshold for x in d])
+    return passes & _interior(H, W, 3, imgs.device)
+
+
 def fast_nms_score_plain(imgs: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
     """(Bi, H, W) -> (Bi, H, W) NMS-suppressed FAST-10 score in plain PyTorch."""
     mask, score = fast_score_10(imgs, threshold)
@@ -107,10 +140,9 @@ def fast_nms_score(imgs: torch.Tensor, threshold: float = 20.0) -> torch.Tensor:
     out = torch.empty_like(imgs)
     if imgs.numel() == 0:
         return out
-    lib = _load()
-    with torch.cuda.device(imgs.device):
-        stream = torch.cuda.current_stream(imgs.device).cuda_stream
-        rc = lib.fast_nms_launch(imgs.data_ptr(), out.data_ptr(), Bi, H, W, float(threshold), stream)
+    with cuda_build.on_device(imgs.device):
+        rc = _load().fast_nms_launch(imgs.data_ptr(), out.data_ptr(), Bi, H, W,
+                                     float(threshold), torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fast_nms_score: kernel launch for {(Bi, H, W)} failed with CUDA "
                            f"error {rc} ({cuda_build.error_name('fast_nms', rc)})")

@@ -5,8 +5,11 @@ and skips without a card. This file imports neither JAX nor the JAX package:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_image_cuda.py -q
 
-* FAST: the kernel equals its plain version bit for bit, at ragged shapes and
-  at Bi in {1, 3}, on random and rendered images.
+* FAST: the kernel equals its plain version bit for bit, in one launch, at
+  ragged, odd-width and tiny shapes (5 x 5 up), at Bi in {1, 2, 3, 64}, on
+  random, rendered and flat images, on arcs whose differences are exactly the
+  threshold or one ulp above it, at thresholds -5, 0, 20 and 20.3, and on a
+  contiguous view 4 bytes past a 16-byte boundary (the 4-byte variant).
 * KLT: the kernel's good flags equal the plain version's and its positions
   are within 0.05 px (the window is summed in another order; eps = 0.03 px
   keeps a stop test that fires one iteration apart below that), with shared
@@ -87,6 +90,102 @@ def test_fast_kernel_equals_plain(card, shape):
     want = fast_cuda.fast_nms_score_plain(t, 20.0)
     assert torch.equal(got, want)
     assert int((want > 0).sum()) > 0
+
+
+def _arcs(threshold, bright, ulps):
+    """Centres on a 0 background, each with one arc of 10 circle pixels (every
+    start position of the 16) at d >= t, its compass points at exactly t, or
+    t + ``ulps`` ulps; the other 6 circle pixels at 0 (d = 0). Above t = 0
+    the step is the least normal float32: the JAX package's CPU backend
+    flushes subnormals to zero."""
+    t = np.float32(threshold)
+    edge = t
+    for _ in range(ulps):
+        edge = np.nextafter(edge, np.float32(np.inf))
+    if ulps and t == 0:
+        edge = np.finfo(np.float32).tiny
+    sign = np.float32(1.0 if bright else -1.0)
+    img = np.zeros((2 * 12, 8 * 12), np.float32)
+    centres = []
+    for k in range(16):
+        y, x = 6 + 12 * (k // 8), 6 + 12 * (k % 8)
+        for j in range(10):
+            dx, dy = fast_cuda.FAST_OFFSETS[(k + j) % 16]
+            # compass points (0, 4, 8, 12) at the edge value, the rest above it
+            v = edge if (k + j) % 4 == 0 else np.float32(edge + np.float32(7.0))
+            img[y + dy, x + dx] = sign * v
+        centres.append((y, x))
+    return img[None], centres
+
+
+def _fast_once(t, threshold=20.0):
+    """One kernel launch on t, bit for bit the plain version's output."""
+    before = fast_cuda.fast_nms_score.launches
+    got = fast_cuda.fast_nms_score(t, threshold)
+    torch.cuda.synchronize()
+    assert fast_cuda.fast_nms_score.launches == before + 1
+    want = fast_cuda.fast_nms_score_plain(t, threshold)
+    assert torch.equal(got, want), f"{int((got != want).sum())} pixels differ"
+    return want
+
+
+def test_fast_kernel_on_a_misaligned_view(card):
+    """A contiguous view 4 bytes past a 16-byte boundary takes the 4-byte
+    variant; the aligned base the 16-byte one."""
+    rng = np.random.default_rng(11)
+    flat = torch.as_tensor(rng.uniform(0, 255, size=2 * 96 * 128 + 1).astype(np.float32),
+                           device=card)
+    view = flat[1:].view(2, 96, 128)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    assert fast_cuda.launch_variant(view) == "scalar"
+    assert int((_fast_once(view) > 0).sum()) > 0
+    base = flat[:-1].view(2, 96, 128)
+    assert fast_cuda.launch_variant(base) == "vector"
+    _fast_once(base)
+
+
+@pytest.mark.parametrize("shape", [(2, 60, 301), (1, 45, 131), (1, 5, 5), (1, 7, 9), (2, 33, 17)])
+def test_fast_kernel_at_odd_and_small_shapes(card, shape):
+    """Odd widths (the 4-byte variant) and images smaller than a tile, down
+    to 5 x 5, where no pixel is 3 px from every edge."""
+    img = np.random.default_rng(sum(shape)).uniform(0, 255, size=shape).astype(np.float32)
+    t = torch.as_tensor(img, device=card)
+    assert fast_cuda.launch_variant(t) == ("vector" if shape[2] % 4 == 0 else "scalar")
+    want = _fast_once(t)
+    if min(shape[1:]) < 7:
+        assert not bool(want.any())
+
+
+@pytest.mark.parametrize("threshold", [20.0, 0.0, -5.0])
+def test_fast_kernel_on_a_flat_image(card, threshold):
+    """Every difference 0: no corner at t >= 0; at t = -5 every interior
+    pixel scores 0 > t and ties all its neighbours, so NMS keeps it with 0."""
+    _fast_once(torch.full((1, 40, 100), 128.0, device=card), threshold)
+
+
+@pytest.mark.parametrize("ulps", [0, 1])
+@pytest.mark.parametrize("bright", [True, False])
+@pytest.mark.parametrize("threshold", [0.0, 20.0, 20.3])
+def test_fast_kernel_on_exact_threshold_arcs(card, threshold, bright, ulps):
+    img, centres = _arcs(threshold, bright, ulps)
+    want = _fast_once(torch.as_tensor(img, device=card), threshold)
+    for y, x in centres:
+        assert (float(want[0, y, x]) > threshold) == (ulps == 1)
+
+
+def test_fast_kernel_on_random_image_at_threshold_zero(card):
+    """Uniform noise at t = 0: nearly every pixel is a candidate."""
+    img = np.random.default_rng(2).uniform(0, 255, size=(1, 480, 752)).astype(np.float32)
+    t = torch.as_tensor(img, device=card)
+    assert float(fast_cuda.fast_pretest_plain(t, 0.0).float().mean()) > 0.9
+    _fast_once(t, 0.0)
+
+
+def test_fast_kernel_on_a_rendered_batch_of_64(card, frames):
+    """(64, 480, 752): the 64-stream path's launch, with its brightness offsets."""
+    t = torch.as_tensor(frames[:1], device=card)
+    batch = (t + 0.5 * (torch.arange(64, device=card) % 7)[:, None, None]).contiguous()
+    assert int((_fast_once(batch) > 0).sum()) > 64 * 20
 
 
 def test_fast_kernel_equals_plain_on_rendered_frames(card, frames):

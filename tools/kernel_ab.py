@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Time the port's γ-gate and LK-level kernels on one NVIDIA GPU.
+"""Time the port's γ-gate, FAST-10+NMS and LK-level kernels on one NVIDIA GPU.
 
     python3 tools/kernel_ab.py [--label NAME]
     PYTHONPATH=/path/to/other/checkout python3 tools/kernel_ab.py --label parent
@@ -16,7 +16,10 @@ the main paths' shapes, by chip_smoke.py's timers (this checkout's):
 
 γ runs on S = XXᵀ/R + 1e-5 I (X of R × (R + 4), seed 0) at (R, n) = (41, 8192)
 and (1, 49152) (the filter path's marginalize and prune gates at 1024
-filters) and (41, 2048), (1, 12288) (the image path's, at 256 filters). KLT
+filters) and (41, 2048), (1, 12288) (the image path's, at 256 filters). FAST
+runs at threshold 20 on rendered frame 30 of the image path's world at
+(1, 480, 752), on the same frame x64 with the 64-stream path's brightness
+offsets, and on uniform noise (the pre-test's worst case). KLT
 runs the four pyramid levels of rendered frames 30 → 31 of the image path's
 world (window 21, 30 iterations, eps 1 px), 256 filters × 64 features at
 detected corners with 0.5 px jitter and a 1.5 px prediction error, 90% valid:
@@ -50,17 +53,34 @@ def _smoke():
     return mod
 
 
-def klt_launches(torch, B, shared, seed=1):
-    """The four level launches of frames 30 -> 31: (args, kwargs) each."""
+def rendered_frames(torch):
+    """Frames 30 and 31 of the image path's world, (2, 480, 752) on the card."""
     from msckf_mono_tpu_torch.data import render, synthetic
-    from msckf_mono_tpu_torch.frontend import detect, klt
     from msckf_mono_tpu_torch.utils.config import MsckfConfig
 
     cfg = MsckfConfig()
     _, world = synthetic.generate(cfg, n_frames=32, seed=0, pixel_noise=0.0, n_landmarks=500,
                                   return_world=True)
-    imgs = torch.as_tensor(np.stack([render.render_frame(cfg, world, i) for i in (30, 31)]),
+    return torch.as_tensor(np.stack([render.render_frame(cfg, world, i) for i in (30, 31)]),
                            device="cuda")
+
+
+def fast_images(torch, imgs):
+    """FAST's three images: rendered frame 30, the same frame x64 with the
+    64-stream path's brightness offsets (b mod 7) * 0.5, and chip_smoke.py's
+    uniform noise (seed 1)."""
+    frame = imgs[:1]
+    noise = np.random.default_rng(1).uniform(0, 255, size=(1, 480, 752)).astype(np.float32)
+    return (("rendered", frame),
+            ("rendered x64", (frame + 0.5 * (torch.arange(64, device="cuda") % 7)[:, None, None])
+             .contiguous()),
+            ("random", torch.as_tensor(noise, device="cuda")))
+
+
+def klt_launches(torch, imgs, B, shared, seed=1):
+    """The four level launches of frames 30 -> 31: (args, kwargs) each."""
+    from msckf_mono_tpu_torch.frontend import detect, klt
+
     pyr0, pyr1 = klt.build_pyramid(imgs[:1], 3), klt.build_pyramid(imgs[1:], 3)
     xy, _, ok = detect.detect_features(imgs[:1], torch.zeros(1, 100, dtype=torch.bool,
                                                               device="cuda"))
@@ -86,6 +106,8 @@ def klt_launches(torch, B, shared, seed=1):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--kernels", default="gamma,fast,klt",
+                    help="comma-separated subset of gamma, fast, klt")
     args = ap.parse_args(argv)
 
     import torch
@@ -93,23 +115,32 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("tools/kernel_ab.py needs an NVIDIA GPU")
     import msckf_mono_tpu_torch
-    from msckf_mono_tpu_torch.ops import klt_cuda, psd_cuda
+    from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda, psd_cuda
 
     smoke = _smoke()
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip().splitlines()[0]
     result = dict(label=args.label, package=str(Path(msckf_mono_tpu_torch.__file__).parent),
-                  card=card, gamma=[], klt=[])
+                  card=card, gamma=[], fast=[], klt=[])
+    kernels = set(args.kernels.split(","))
     rng = np.random.default_rng(0)
-    for R, n in ((41, 8192), (1, 49152), (41, 2048), (1, 12288)):
+    for R, n in ((41, 8192), (1, 49152), (41, 2048), (1, 12288)) if "gamma" in kernels else ():
         S, r = smoke._make_systems(torch, rng, n, R)
         row = dict(R=R, n=n, ms=smoke._time_ms(torch, lambda: psd_cuda.gamma_psd(S, r)),
                    device_ms=smoke._graph_ms(torch, lambda: psd_cuda.gamma_psd(S, r)))
         result["gamma"].append(row)
         print(f"[kernel_ab] {args.label} gamma {row}", file=sys.stderr, flush=True)
 
-    for shared, B in ((True, 256), (False, 64)):
-        for lvl, (largs, kw) in enumerate(klt_launches(torch, B, shared)):
+    imgs = rendered_frames(torch)
+    for name, t in fast_images(torch, imgs) if "fast" in kernels else ():
+        row = dict(image=name, shape=list(t.shape),
+                   ms=smoke._time_ms(torch, lambda: fast_cuda.fast_nms_score(t, 20.0)),
+                   device_ms=smoke._graph_ms(torch, lambda: fast_cuda.fast_nms_score(t, 20.0)))
+        result["fast"].append(row)
+        print(f"[kernel_ab] {args.label} fast {row}", file=sys.stderr, flush=True)
+
+    for shared, B in ((True, 256), (False, 64)) if "klt" in kernels else ():
+        for lvl, (largs, kw) in enumerate(klt_launches(torch, imgs, B, shared)):
             row = dict(path="shared" if shared else "per-stream", B=B, level=lvl,
                        shape=list(largs[0].shape),
                        ms=smoke._time_ms(torch, lambda: klt_cuda.track_level(*largs, **kw)),
@@ -124,6 +155,8 @@ def main(argv=None):
             print(f"[kernel_ab] {args.label} klt {row}", file=sys.stderr, flush=True)
     for path in ("shared", "per-stream"):
         rows = [k for k in result["klt"] if k["path"] == path]
+        if not rows:
+            continue
         result[f"klt_{path}_frame_ms"] = sum(k["ms"] for k in rows)
         result[f"klt_{path}_frame_device_ms"] = sum(k["device_ms"] for k in rows)
     print(json.dumps(result))
