@@ -53,7 +53,22 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 8. [image-indep], [replay-indep]: 64 independent streams (per-stream
    brightness offset (b mod 7) * 0.5, as bench.py) over 40 frames
    (batched_run_images), with ATE(filter 0) and launch counts; then the
-   replay of phase 7 on frames 20-23 of that path.
+   replay of phase 7 on frames 20-23 of that path;
+9. the live path, one filter (B = 1) at the default MsckfConfig (28 slots,
+   128 tracks, sequential marginalize and prune updates, gamma at R = 53)
+   over the same rendered world's 200 frames:
+   [live-data] the world written as a EuRoC tree by data/write_asl.py and
+   read back by data/asl.py (images bit-equal; which decoder served);
+   [live-cli] cli/run_euroc on that tree (GT init, --finish);
+   [live] VioInterface driven by imu_callback at 200 Hz and image_callback,
+   then finish(): image_callback latency p50/p99 against the camera's
+   50 ms, frames/s, ATE and drift, the getters, exact launch counts,
+   device->host copies and synchronizing CUDA calls a frame (by site);
+   [live-profile] frames 30-32 of a fresh run under the profiler;
+   [live-parity] 60 frames with use_qr_compression and use_anisotropic_r;
+   [live-replay] every gamma, FAST and KLT launch of frames 30-33 of
+   [live] against the plain versions (as phase 7), then each kernel's
+   times and bound at the live shapes.
 
 Kernel times: ``ms`` is one call's CUDA-event time, the host's launch work
 included (the median of 25 calls); ``device_ms`` is device time per launch
@@ -800,6 +815,18 @@ def phase_replay(torch, tag, run, state, fstate, frames):
     log(f"[{tag}] FAST: {len(fast_calls)} launches on {tuple(fast_calls[0][0].shape)}, each equal "
         f"to the plain version bit for bit ({sum(int((c[2] > 0).sum()) for c in fast_calls)} corners)")
 
+    klt = _klt_replay(torch, tag, klt_calls, track)
+    klt["fast_max_abs_err"] = fast_err
+    return klt
+
+
+def _klt_replay(torch, tag, klt_calls, track):
+    """Recorded LK-level launches (4 a frame, top level first) against the
+    plain version, with the live LK iterations and the pixels read for the
+    bound; then the kernel, device and plain times and the bound of the
+    first recorded frame's four levels."""
+    from msckf_mono_tpu_torch.ops import klt_cuda
+
     levels = []
     worst = 0.0
     for i, (args, kw, got) in enumerate(klt_calls):
@@ -857,7 +884,6 @@ def phase_replay(torch, tag, run, state, fstate, frames):
     by_bytes = sum(p["bound_ms"] for p in klt["per_level"] if p["bound_by"] == "bytes")
     klt["bound_by"] = "bytes" if 2 * by_bytes >= klt["bound_ms"] else "operations"
     klt["max_abs_err"] = worst
-    klt["fast_max_abs_err"] = fast_err
     return klt
 
 
@@ -898,6 +924,394 @@ def _union_ms(spans):
     return total / 1e3
 
 
+# The live path: the default MsckfConfig (28 slots, 128 tracks, state dim
+# 183, sequential marginalize and prune updates, max_staged 16) at B = 1.
+LIVE_FRAMES, LIVE_PARITY_FRAMES = 200, 60
+LIVE_REPLAY = range(30, 34)                  # frames whose launches are recorded
+LIVE_TH = dict(window_size=IMAGE_WINDOW, max_level=3)   # VioInterface's default 128 features
+CLI_TH_FEATURES = 100                        # run_euroc's TrackHandler
+CAMERA_PERIOD_MS = 50.0                      # 20 Hz
+GT_INIT = dict(p_I_G=[5.0, 0.0, 0.0], q_IG=[1, 0, 0, 0], v_I_G=[0.0, 5.0 * 0.35, 0.2 * 1.4])
+
+
+def live_expected_launches(cfg, frames, finish=True):
+    """Exact launches of a live run of ``frames`` frames: FAST once a frame,
+    KLT once a level from the second frame on, gamma once a chunk of each
+    gated row stack (marginalize, then prune), and in finish() once a chunk
+    of each of its passes."""
+    shp = cfg.shapes
+    marg = shp.max_staged // min(shp.staged_chunk, shp.max_staged)
+    prune = shp.max_staged_prune // min(shp.prune_chunk or shp.staged_chunk, shp.max_staged_prune)
+    per_frame = marg + (prune if cfg.filter.use_prune_redundant else 0)
+    passes = -(-shp.max_tracks // shp.max_staged)
+    return frames, 4 * (frames - 1), per_frame * frames + (passes * marg if finish else 0)
+
+
+class SyncCounter:
+    """Counts synchronizing CUDA calls (torch.cuda.set_sync_debug_mode("warn")
+    warns on each: device→host copies, blocking host→device copies, stream and
+    device syncs) while it is entered, and the Python line of each."""
+
+    def __init__(self, torch):
+        import collections
+
+        self.torch, self.count, self.sites = torch, 0, collections.Counter()
+
+    def __enter__(self):
+        import warnings
+
+        self._catch = warnings.catch_warnings(record=True)
+        self._caught = self._catch.__enter__()
+        warnings.simplefilter("always")
+        self.torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.cuda.set_sync_debug_mode("default")
+        for w in self._caught:
+            if "synchroniz" in str(w.message):
+                self.count += 1
+                self.sites[f"{'/'.join(w.filename.split('/')[-2:])}:{w.lineno}"] += 1
+        self._catch.__exit__(*exc)
+
+    def summary(self, frames):
+        return ", ".join(f"{site} {n / frames:.2f}" for site, n in self.sites.most_common())
+
+
+class LaunchRecorder:
+    """While on, records every gamma, FAST and KLT launch's inputs and
+    outputs (and each gate's dof) by wrapping the wrappers in their modules;
+    the wrapped calls are the path's own launches."""
+
+    def __init__(self):
+        from msckf_mono_tpu_torch.core import update
+        from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda, psd_cuda
+
+        self.mods = dict(update=update, fast=fast_cuda, klt=klt_cuda, psd=psd_cuda)
+        self.orig = dict(gate=update.gating_test_all, fast=fast_cuda.fast_nms_score,
+                         klt=klt_cuda.track_level, gamma=psd_cuda.gamma_psd)
+        self.gamma, self.dofs, self.fast, self.klt = [], [], [], []
+
+    def on(self):
+        o = self.orig
+
+        def gamma(Smat, r):
+            out = o["gamma"](Smat, r)
+            self.gamma.append((Smat.clone(), r.clone(), out.clone()))
+            return out
+
+        def gate(H_all, r_all, P, dof, *args):
+            self.dofs.append(dof.clone())
+            return o["gate"](H_all, r_all, P, dof, *args)
+
+        def fast(imgs, threshold=20.0):
+            out = o["fast"](imgs, threshold)
+            self.fast.append((imgs.clone(), threshold, out.clone()))
+            return out
+
+        def klt(*args, **kw):
+            out = o["klt"](*args, **kw)
+            self.klt.append((tuple(a.clone() for a in args), kw, tuple(x.clone() for x in out)))
+            return out
+
+        m = self.mods
+        m["psd"].gamma_psd, m["update"].gating_test_all = gamma, gate
+        m["fast"].fast_nms_score, m["klt"].track_level = fast, klt
+
+    def off(self):
+        m, o = self.mods, self.orig
+        m["psd"].gamma_psd, m["update"].gating_test_all = o["gamma"], o["gate"]
+        m["fast"].fast_nms_score, m["klt"].track_level = o["fast"], o["klt"]
+
+
+def _percentile(xs, q):
+    return float(np.percentile(np.asarray(xs), q))
+
+
+def phase_live_data(torch, cfg, imgs, root):
+    """The rendered world written as a EuRoC tree by the port's writer and
+    read back by its readers: images bit-equal to the rendered frames."""
+    from msckf_mono_tpu_torch.data import asl, native_loader, synthetic, write_asl
+
+    T = imgs.shape[0]
+    seq, world = synthetic.generate(cfg, n_frames=T, seed=0, pixel_noise=0.0, n_landmarks=500,
+                                    return_world=True)
+    t0 = time.perf_counter()
+    info = write_asl.write_sequence(root, cfg, seq, world)
+    t_write = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rd = asl.read_sequence(root)
+    want = imgs.to(torch.uint8).cpu().numpy()
+    with rd.cam.prefetcher() as pf:
+        for i in range(T):
+            got = pf.get(i)
+            check(np.array_equal(got, want[i]), f"[live-data] frame {i} differs from the rendered "
+                  f"frame on {int((got != want[i]).sum())} pixels")
+    t_read = time.perf_counter() - t0
+    check(len(rd.cam.timestamps) == T and rd.gt is not None, "[live-data] tree incomplete")
+    log(f"[live-data] EuRoC tree of {T} frames written in {t_write:.1f} s (data/write_asl.py, "
+        f"zlib PNG writer) and read back in {t_read:.1f} s; every image bit-equal to the rendered "
+        f"frame; decoder: {native_loader.decoder()}; IMU {rd.imu.omega.shape[0]} readings, "
+        f"ground truth {rd.gt.p.shape[0]} poses")
+    return info, native_loader.decoder()
+
+
+def phase_live_cli(torch, root, info, frames):
+    """cli/run_euroc on the card over the written tree: GT init, --finish."""
+    import contextlib
+    import io
+
+    from msckf_mono_tpu_torch import interface
+    from msckf_mono_tpu_torch.cli import run_euroc
+    from msckf_mono_tpu_torch.utils.config import MsckfConfig
+
+    out = f"{root}/traj.npz"
+    argv = ["--data", root, "--init", "gt", "--stand-still-end", str(info["t0_ns"] / 1e9),
+            "--finish", "--out", out]
+    copies = [0]
+    to_host = interface.to_host
+
+    def counted(tensors):
+        copies[0] += 1
+        return to_host(tensors)
+
+    torch.cuda.synchronize()
+    _zero_counts()
+    interface.to_host = counted
+    try:
+        with SyncCounter(torch) as syncs, contextlib.redirect_stdout(io.StringIO()):
+            report = run_euroc.main(argv)
+    finally:
+        interface.to_host = to_host
+    launches = _counts()
+    dat = np.load(out)
+    cfg = MsckfConfig()
+    want = live_expected_launches(cfg, frames)
+    log(f"[live-cli] cli/run_euroc on cuda, {report['frames']} frames, TrackHandler "
+        f"{CLI_TH_FEATURES} features / {IMAGE_WINDOW} px / 4 levels, default MsckfConfig: "
+        f"{report['fps']} frames/s ({report['wall_s']} s), ATE {report['ate_rmse']:.4f} m "
+        f"(limit {ATE_GATE_M}), final drift {report['final_drift']:.4f} m")
+    log(f"[live-cli] map {len(dat['map'])} points, {len(dat['pruned_state_id'])} pruned poses; "
+        f"launches FAST {launches[0]}, KLT {launches[1]}, gamma {launches[2]} (expected "
+        f"{want[0]}, {want[1]}, {want[2]}); device->host copies {copies[0]} "
+        f"({copies[0] / frames:.2f} a frame), synchronizing CUDA calls {syncs.count} "
+        f"({syncs.count / frames:.2f} a frame: {syncs.summary(frames)})")
+    check(report["frames"] == frames, f"[live-cli] {report['frames']} frames, expected {frames}")
+    check(np.all(np.isfinite(dat["est"])), "[live-cli] non-finite trajectory")
+    check(report["final_drift"] < 1.0, f"[live-cli] final drift {report['final_drift']:.4f} m >= 1 m")
+    check(tuple(launches) == want, f"[live-cli] launches {launches}, expected {want}")
+    return dict(report=report, map_points=len(dat["map"]), pruned=len(dat["pruned_state_id"]),
+                launches=dict(zip(("fast", "klt", "gamma"), launches)),
+                host_copies_per_frame=copies[0] / frames, syncs_per_frame=syncs.count / frames)
+
+
+def _live_frame(torch, vio, seq, imgs_host, i, latencies=None, syncs=None):
+    """Frame i: its IMU readings at 200 Hz through imu_callback, then the
+    image through image_callback, timed with the device synchronized."""
+    K = seq.imu_omega.shape[1]
+    for k in range(K):
+        vio.imu_callback(seq.imu_omega[i, k], seq.imu_acc[i, k],
+                         float(seq.time[i]) - (K - 1 - k) * 0.005, dt=float(seq.imu_dt[i, k]))
+    t0 = time.perf_counter()
+    if syncs is not None:
+        with syncs:
+            ran = vio.image_callback(imgs_host[i], float(seq.time[i]))
+    else:
+        ran = vio.image_callback(imgs_host[i], float(seq.time[i]))
+    torch.cuda.synchronize()
+    if latencies is not None:
+        latencies.append((time.perf_counter() - t0) * 1e3)
+    check(ran, f"frame {i}: the filter did not run")
+
+
+def _live_interface(cfg, seq):
+    from msckf_mono_tpu_torch.interface import VioInterface
+
+    vio = VioInterface(cfg, device="cuda", keep_visualizer=True, track_handler_kwargs=LIVE_TH)
+    vio.initialize_from_ground_truth(**GT_INIT, b_g=seq.b_g, b_a=seq.b_a)
+    return vio
+
+
+def phase_live(torch, tag, seq, imgs, frames, cfg, recorder=None):
+    """VioInterface on the card over the rendered world, then finish();
+    ``recorder`` records the launches of frames LIVE_REPLAY."""
+    from msckf_mono_tpu_torch.eval.ate import ate_rmse, final_drift
+
+    imgs_host = imgs[:frames].cpu().numpy()
+    vio = _live_interface(cfg, seq)
+    est, lat = [], []
+    syncs = SyncCounter(torch)
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    for i in range(frames):
+        if recorder is not None and i == LIVE_REPLAY[0]:
+            recorder.on()
+        _live_frame(torch, vio, seq, imgs_host, i, lat, syncs)
+        if recorder is not None and i == LIVE_REPLAY[-1]:
+            recorder.off()
+        est.append(vio.odometry()["p_I_G"])
+    n_map_before = len(vio.map())
+    t1 = time.perf_counter()
+    vio.finish()
+    torch.cuda.synchronize()
+    finish_ms = (time.perf_counter() - t1) * 1e3
+    seconds = time.perf_counter() - t0
+    launches = _counts()
+    want = live_expected_launches(cfg, frames)
+    est = np.asarray(est)
+    check(np.all(np.isfinite(est)), f"[{tag}] non-finite trajectory")
+    ate, drift = ate_rmse(est, seq.gt_p[:frames]), final_drift(est, seq.gt_p[:frames])
+    cs, pruned, overlay = vio.cam_states(), vio.pruned_states(), vio.track_overlay()
+    p50, p99 = _percentile(lat, 50), _percentile(lat, 99)
+    log(f"[{tag}] VioInterface on cuda, {frames} frames, default MsckfConfig"
+        f"{' + use_qr_compression + use_anisotropic_r' if cfg.filter.use_qr_compression else ''}, "
+        f"TrackHandler 128 features / {IMAGE_WINDOW} px / 4 levels: image_callback p50 "
+        f"{p50:.2f} ms, p99 {p99:.2f} ms, max {max(lat):.2f} ms (camera period "
+        f"{CAMERA_PERIOD_MS:.0f} ms: {'kept up' if p99 <= CAMERA_PERIOD_MS else 'NOT kept up'}); "
+        f"{frames / seconds:.2f} frames/s over {seconds:.1f} s incl. finish() {finish_ms:.1f} ms")
+    log(f"[{tag}] ATE {ate:.4f} m (limit {ATE_GATE_M}), final drift {drift:.4f} m; map "
+        f"{n_map_before} points before finish(), {len(vio.map())} after; {len(pruned['state_id'])} "
+        f"pruned poses; window {len(cs['state_id'])} poses; map_points() {vio.map_points().shape}; "
+        f"overlay {overlay.shape} {overlay.dtype}")
+    log(f"[{tag}] launches FAST {launches[0]}, KLT {launches[1]}, gamma {launches[2]} (expected "
+        f"{want[0]}, {want[1]}, {want[2]}); device->host copies {vio.host_copies} "
+        f"({vio.host_copies / frames:.2f} a frame), synchronizing CUDA calls in image_callback "
+        f"{syncs.count} ({syncs.count / frames:.2f} a frame: {syncs.summary(frames)})")
+    check(drift < 1.0, f"[{tag}] final drift {drift:.4f} m >= 1 m")
+    check(tuple(launches) == want, f"[{tag}] launches {launches}, expected {want}")
+    check(overlay.shape == (cfg.camera.height, cfg.camera.width, 3), f"[{tag}] overlay {overlay.shape}")
+    check(len(vio.map()) >= n_map_before > 0, f"[{tag}] map {n_map_before} -> {len(vio.map())}")
+    return dict(frames=frames, p50_ms=p50, p99_ms=p99, max_ms=max(lat), frames_per_s=frames / seconds,
+                finish_ms=finish_ms, ate=ate, final_drift=drift, map_points=len(vio.map()),
+                pruned=len(pruned["state_id"]), launches=dict(zip(("fast", "klt", "gamma"), launches)),
+                host_copies_per_frame=vio.host_copies / frames, syncs_per_frame=syncs.count / frames)
+
+
+def phase_live_profile(torch, seq, imgs, cfg, frame_ms):
+    """Where a live frame's time goes: frames 30-32 of a fresh run under the profiler."""
+    lo = LIVE_REPLAY[0]
+    imgs_host = imgs[:lo + PROFILE_FRAMES].cpu().numpy()
+    vio = _live_interface(cfg, seq)
+    for i in range(lo):
+        _live_frame(torch, vio, seq, imgs_host, i)
+
+    def go():
+        for i in range(lo, lo + PROFILE_FRAMES):
+            _live_frame(torch, vio, seq, imgs_host, i)
+
+    phase_profile(torch, "live-profile", go, frame_ms)
+
+
+def phase_live_replay(torch, cfg, rec):
+    """The recorded live launches against the plain versions, then each
+    kernel's times at the live shapes."""
+    from msckf_mono_tpu_torch.ops import fast_cuda, psd_cuda
+    from msckf_mono_tpu_torch.utils.chi2 import gate_threshold
+
+    n = len(LIVE_REPLAY)
+    want = live_expected_launches(cfg, n, finish=False)
+    check((len(rec.fast), len(rec.klt), len(rec.gamma), len(rec.dofs)) == (n, 4 * n, want[2], want[2]),
+          f"[live-replay] recorded FAST {len(rec.fast)}, KLT {len(rec.klt)}, gamma {len(rec.gamma)}, "
+          f"gates {len(rec.dofs)} over {n} frames")
+    # gamma: within 1e-3 relative, identical gate decisions
+    rel_max, abs_max, lanes, same, passed = 0.0, 0.0, 0, 0, 0
+    for (Smat, r, got), dof in zip(rec.gamma, rec.dofs):
+        ref = psd_cuda.gamma_psd_plain(Smat, r)
+        thr = gate_threshold(dof, reproduce_offbyone=cfg.filter.chi2_offbyone, dtype=torch.float32)
+        fin = torch.isfinite(ref)
+        check(torch.equal(torch.isfinite(got), fin), "[live-replay] gamma: finite lanes differ")
+        if bool(fin.any()):
+            err = (got[fin] - ref[fin]).abs()
+            rel_max = max(rel_max, (err / ref[fin].abs().clamp_min(1e-30)).max().item())
+            abs_max = max(abs_max, err.max().item())
+        lanes += got.numel()
+        same += int(((got < thr) == (ref < thr)).sum())
+        passed += int(((ref < thr) & (r != 0).any(-1)).sum())
+    shape = tuple(rec.gamma[0][0].shape)
+    log(f"[live-replay] gamma: {len(rec.gamma)} launches on S {shape} "
+        f"({psd_cuda.launch_plan(shape[-1]).variant} variant): max rel err {rel_max:.2e}, max abs err "
+        f"{abs_max:.3e}; decisions identical on {same}/{lanes} lanes ({passed} pass with rows)")
+    check(rel_max <= 1e-3, f"[live-replay] gamma max relative error {rel_max:.3e} > 1e-3")
+    check(same == lanes, f"[live-replay] gamma decisions differ on {lanes - same} lanes")
+    Smat, r, _ = rec.gamma[0]
+    R = Smat.shape[-1]
+    nsys = Smat.numel() // (R * R)
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(Smat)
+        return torch.linalg.solve_triangular(L, r[..., None], upper=False)
+
+    nbytes = nsys * (R * (R + 1) // 2 + R) * 4 + nsys * 4
+    flops = nsys * (R ** 3 / 3.0 + R ** 2)
+    bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    gamma = dict(R=R, n=nsys, variant=psd_cuda.launch_plan(R).variant,
+                 ms=_time_ms(torch, lambda: psd_cuda.gamma_psd(Smat, r)),
+                 device_ms=_graph_ms(torch, lambda: psd_cuda.gamma_psd(Smat, r)),
+                 plain_ms=_time_ms(torch, lambda: psd_cuda.gamma_psd_plain(Smat, r)),
+                 library_ms=_time_ms(torch, library), bound_ms=max(bytes_ms, ops_ms),
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations", max_abs_err=abs_max,
+                 launches_per_frame=want[2] // n)
+    log(f"[live-replay] gamma R={R} n={nsys}: kernel {gamma['ms']:.4f} ms a call, "
+        f"{gamma['device_ms']:.4f} ms on the device, plain {gamma['plain_ms']:.4f} ms, library "
+        f"{gamma['library_ms']:.4f} ms, bound {gamma['bound_ms']:.6f} ms ({gamma['bound_by']})")
+
+    # FAST: bit-equal, with its bound on each recorded image
+    fast_err = 0.0
+    for i, (img, thr, got) in enumerate(rec.fast):
+        ref = fast_cuda.fast_nms_score_plain(img, thr)
+        fast_err = max(fast_err, float((got - ref).abs().max()))
+        check(torch.equal(got, ref), f"[live-replay] FAST frame {i} differs on "
+              f"{int((got != ref).sum())} pixels")
+    img, thr, _ = rec.fast[0]
+    bound_ms, bound_by, share = _fast_bound(img, thr)
+    fast = dict(shape=list(img.shape), ms=_time_ms(torch, lambda: fast_cuda.fast_nms_score(img, thr)),
+                device_ms=_graph_ms(torch, lambda: fast_cuda.fast_nms_score(img, thr)),
+                plain_ms=_time_ms(torch, lambda: fast_cuda.fast_nms_score_plain(img, thr), reps=10),
+                bound_ms=bound_ms, bound_by=bound_by, candidate_share=share, library_ms=None,
+                max_abs_err=fast_err)
+    log(f"[live-replay] FAST: {len(rec.fast)} launches on {tuple(img.shape)}, each bit-equal to the "
+        f"plain version; kernel {fast['ms']:.4f} ms a call, {fast['device_ms']:.4f} ms on the "
+        f"device, plain {fast['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
+        f"{100 * share:.3f}% of the pixels pass the pre-test)")
+
+    klt = _klt_replay(torch, "live-replay", rec.klt, rec.orig["klt"])
+    klt["library_ms"] = None
+    return dict(gamma=gamma, fast=fast, klt=klt)
+
+def run_live_phases(torch, imgs):
+    """[live-data], [live-cli], [live] with the replay recorded,
+    [live-profile], [live-parity] and [live-replay], on the rendered frames."""
+    import dataclasses as dc
+    import shutil
+    import tempfile
+    from pathlib import Path
+
+    from msckf_mono_tpu_torch.data import synthetic
+    from msckf_mono_tpu_torch.utils.config import MsckfConfig
+
+    cfg = MsckfConfig()
+    T = imgs.shape[0]
+    seq = synthetic.generate(cfg, n_frames=T, seed=0, pixel_noise=0.0, n_landmarks=500)
+    build = Path(__file__).resolve().parent / "msckf_mono_tpu_torch" / "build"
+    build.mkdir(parents=True, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="live_tree_", dir=build)
+    try:
+        info, decoder = phase_live_data(torch, cfg, imgs, root)
+        cli = phase_live_cli(torch, root, info, T)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    rec = LaunchRecorder()
+    live = phase_live(torch, "live", seq, imgs, T, cfg, recorder=rec)
+    phase_live_profile(torch, seq, imgs, cfg, live["p50_ms"])
+    parity_cfg = dc.replace(cfg, filter=dc.replace(cfg.filter, use_qr_compression=True,
+                                                   use_anisotropic_r=True))
+    parity = phase_live(torch, "live-parity", seq, imgs, LIVE_PARITY_FRAMES, parity_cfg)
+    replay = phase_live_replay(torch, cfg, rec)
+    return {"live": live, "live-cli": cli, "live-parity": parity, "replay": replay,
+            "decoder": decoder}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=1024)
@@ -916,8 +1330,10 @@ def main(argv=None):
     shared = phase_image(torch, "image", seq, imgs[:IMAGE_FRAMES], IMAGE_BATCH, False)
     indep = phase_image(torch, "image-indep", seq, imgs[:INDEP_FRAMES], INDEP_BATCH, True)
     replay, replay_indep = shared["replay"], indep["replay"]
+    live = run_live_phases(torch, imgs[:LIVE_FRAMES])
 
-    by_path = {k: {"image": shared["launches"][k], "image-indep": indep["launches"][k]}
+    by_path = {k: {"image": shared["launches"][k], "image-indep": indep["launches"][k],
+                   **{path: live[path]["launches"][k] for path in ("live", "live-cli", "live-parity")}}
                for k in ("fast", "klt", "gamma")}
     # One filter-path frame step launches gamma once at each of its two shapes.
     main_shapes = per_shape[:2]
@@ -930,6 +1346,8 @@ def main(argv=None):
            for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in main_shapes) else "operations",
         "per_shape": per_shape,
+        # R = 53, n = 8: every launch of the live path (8 a frame, 16 in finish())
+        "live": live["replay"]["gamma"],
         "registers": usage["psd_gamma"],
     }
     fast = {
@@ -946,6 +1364,8 @@ def main(argv=None):
         # no single PyTorch call computes the FAST-10 score
         "library_ms": None,
         "per_shape": fast_shapes,
+        # B = 1 on the live path's recorded frame
+        "live": live["replay"]["fast"],
         "registers": usage["fast_nms"],
     }
     klt = {
@@ -962,10 +1382,15 @@ def main(argv=None):
         # the same on the 64-stream path's recorded launches (frame 20)
         "image_indep": {k: replay_indep[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                                      "bound_by", "per_level")},
+        # B = Bi = 1, F = 128: the four levels of a recorded live frame
+        "live": {k: live["replay"]["klt"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                                       "bound_by", "max_abs_err", "per_level")},
         "registers": usage["klt_level"],
     }
     paths = {k: {kk: v for kk, v in r.items() if kk != "replay"}
              for k, r in (("image", shared), ("image-indep", indep))}
+    paths.update({k: live[k] for k in ("live", "live-cli", "live-parity")})
+    paths["live-data"] = {"decoder": live["decoder"]}
     print(json.dumps({"kernels": [gamma, fast, klt], "paths": paths}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))

@@ -4,6 +4,15 @@ A second package beside the JAX reference ``msckf_mono_tpu``. It mirrors that
 package's layout and function names, imports neither ``jax`` nor anything of
 ``msckf_mono_tpu``, and carries an explicit leading filter-batch dimension B
 on every tensor (B = 1 for one filter).
+
+Entry points: ``core/filter`` (``step``, ``run_sequence``, ``finish``) and
+``core/pipeline`` (image-in-the-loop fleets); ``interface.VioInterface``, the
+live callback API at B = 1; ``cli/run_euroc`` (EuRoC/ASL and PennCOSYVIO
+trees) and ``cli/run_synthetic``. Beneath them: the live front-end
+(``frontend/track_handler``, ``ransac``, ``visualize``) and the dataset layer
+(``data/asl``, ``sync``, ``penncosy``, ``native_loader``, ``png``,
+``write_asl``, ``write_penncosy``), which needs neither PyYAML nor Pillow.
+Every entry point runs on the card unless given ``device="cpu"`` (``--cpu``).
 """
 
 import torch

@@ -83,7 +83,8 @@ def augment_state(state: FilterState, state_id, time, config: MsckfConfig) -> Fi
     p_new[bidx, k] = p_C_G
     t_new[bidx, k] = torch.as_tensor(time, dtype=dtype, device=dev).expand(B)
     id_new[bidx, k] = torch.as_tensor(state_id, dtype=torch.int32, device=dev).expand(B)
-    v_new[bidx, k] = True
+    # a device value: a Python scalar here is a host->device copy that syncs
+    v_new[bidx, k] = torch.ones_like(v_new[:, 0])
     window = window.replace(q_CG=q_new, p_C_G=p_new, time=t_new, state_id=id_new, valid=v_new)
 
     # J: 6 rows, nonzero only in the 15 IMU columns (msckf.h:180-184).

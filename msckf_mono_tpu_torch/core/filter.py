@@ -5,21 +5,22 @@ readings then runs augment -> update -> addFeatures -> marginalize ->
 pruneRedundantStates -> pruneEmptyStates per camera frame. Here that frame is
 :func:`step`, a function of tensors with a leading filter-batch axis and no
 host synchronization (no ``.item()``, no branch on data), and
-:func:`run_sequence` is a Python loop over the frames.
-
-Not ported yet: ``finish`` / ``_stage_pass`` (end-of-sequence
-force-residualization).
+:func:`run_sequence` is a Python loop over the frames. :func:`finish` is the
+end-of-sequence force-residualization of every remaining track
+(msckf.h:765-807), a fixed number of passes.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
 from msckf_mono_tpu_torch.core import augment, prune, tracks, update
 from msckf_mono_tpu_torch.core import propagate as propagate_mod
-from msckf_mono_tpu_torch.core.types import FilterState, _Replace, tree_map, tree_where
+from msckf_mono_tpu_torch.core.types import FilterState, StagedTracks, _Replace, tree_map, tree_where
+from msckf_mono_tpu_torch.core.window import gather_rows, stable_order
 from msckf_mono_tpu_torch.utils.config import MsckfConfig
 
 
@@ -126,13 +127,14 @@ def _fused_vision_update(state: FilterState, staged, config: MsckfConfig) -> Fil
         staged.obs, staged.obs_mask, p_f, track_ok, window, g, state.P,
         sigma2, config, m_cap=shp.marg_obs_cap or None, return_carry=True,
     )
-    H, r, gate_p, present_p, n_dropped = update.gated_row_stack(
+    out = update.gated_row_stack(
         prep["c_obs"], prep["c_mask_inv"], prep["p_use"], prep["use_track"],
         window, g, state.P, sigma2, config,
         m_cap=shp.prune_obs_cap or None, carry=carry,
         chunk=shp.prune_chunk or None,
     )
-    state = update.measurement_update(state, H, r, sigma2, config)
+    H, r, gate_p, present_p, n_dropped = out[:5]
+    state = update.measurement_update(state, H, r, sigma2, config, *out[5:])
 
     state = update.marginalize_post(
         state, staged, p_f, track_ok, motion_ok, tri_ok,
@@ -160,3 +162,61 @@ def run_sequence(state: FilterState, frames: FrameInput, config: MsckfConfig):
         outs.append(out)
     stacked = tree_map(lambda *xs: torch.stack(xs), outs[0], *outs[1:])
     return state, stacked
+
+
+def _stage_pass(state: FilterState, config: MsckfConfig):
+    """Stage up to ``max_staged`` eligible tracks of each filter and clear
+    them from the table. Returns (state, staged, remaining (B,))."""
+    shp = config.shapes
+    t = state.tracks
+    eligible = t.active & (t.lengths >= config.filter.min_track_length)      # (B, M)
+
+    order = stable_order(~eligible)[:, : shp.max_staged]
+    staged_valid = torch.gather(eligible, 1, order)
+    staged = StagedTracks(
+        obs=gather_rows(t.obs, order),
+        obs_mask=gather_rows(t.obs_mask, order) & staged_valid[..., None],
+        feature_id=torch.gather(t.feature_id, 1, order),
+        valid=staged_valid,
+    )
+    taken = torch.zeros_like(eligible).scatter_(1, order, staged_valid)
+    cleared = t.replace(
+        active=t.active & ~taken,
+        feature_id=torch.where(taken, torch.full_like(t.feature_id, -1), t.feature_id),
+        obs_mask=t.obs_mask & ~taken[..., None],
+    )
+    remaining = torch.sum(eligible, dim=1) - torch.sum(staged_valid, dim=1)
+    return state.replace(tracks=cleared), staged, remaining
+
+
+def finish(state: FilterState, config: MsckfConfig, collect_map: bool = False):
+    """End-of-sequence: residualize EVERY remaining eligible track
+    (msckf.h:765-807 force-residualizes all of them).
+
+    The staging buffer holds ``max_staged`` tracks, so this runs
+    ⌈max_tracks/max_staged⌉ passes whatever the state holds (no host sync);
+    a pass with nothing staged is an identity update (all rows masked). The
+    steady-state row budget is sized for ~1 track a frame, so the passes run
+    with ``max_update_rows`` raised to the worst case,
+    ``max_staged·(2·num_slots−3)``.
+
+    With ``collect_map`` returns (state, pts (B, n_passes·S, 3), mask
+    (B, n_passes·S)): every point the passes triangulated, for the
+    cumulative map (the reference's finish pushes them to ``map_`` too,
+    msckf.h:372).
+    """
+    shp = config.shapes
+    n_passes = -(-shp.max_tracks // shp.max_staged)
+    worst_rows = shp.max_staged * (2 * shp.num_slots - 3)
+    config = dataclasses.replace(config, shapes=dataclasses.replace(shp, max_update_rows=worst_rows))
+
+    pts, masks = [], []
+    for _ in range(n_passes):
+        state, staged, _ = _stage_pass(state, config)
+        state = update.marginalize(state, staged, config)
+        if collect_map:
+            pts.append(state.map_pts)
+            masks.append(state.map_mask)
+    if collect_map:
+        return state, torch.cat(pts, dim=1), torch.cat(masks, dim=1)
+    return state

@@ -264,11 +264,13 @@ def prune_redundant_states(state: FilterState, config: MsckfConfig) -> FilterSta
     dtype = state.P.dtype
     sigma2 = state.meas_sigma2.to(dtype)
     prep = prune_prep(state, config)
-    H, r, gate_ok, _rows_present, n_rows_dropped = gated_row_stack(
+    out = gated_row_stack(
         prep["c_obs"], prep["c_mask_inv"], prep["p_use"], prep["use_track"],
         state.window, state.imu.g, state.P, sigma2, config,
         m_cap=config.shapes.prune_obs_cap or None,
         chunk=config.shapes.prune_chunk or None,
     )
-    state = measurement_update(state, H, r, sigma2, config)
+    H, r, gate_ok, _rows_present, n_rows_dropped = out[:5]
+    # out[5:] is (V, v_track_ids) with use_anisotropic_r, else empty
+    state = measurement_update(state, H, r, sigma2, config, *out[5:])
     return prune_post(state, prep, gate_ok, n_rows_dropped, config)

@@ -125,12 +125,14 @@ def add_features(state: FilterState, new_uv, new_ids, new_valid, config: MsckfCo
 
     obs = pad(tracks.obs, 0)
     obs[bidx, rows, col] = uv_c.to(obs.dtype)
+    # device values: a Python scalar here is a host->device copy that syncs
+    true = torch.ones(rows.shape, dtype=torch.bool, device=dev)
     obs_mask = pad(tracks.obs_mask, False)
-    obs_mask[bidx, rows, col] = True
+    obs_mask[bidx, rows, col] = true
     feature_id = pad(tracks.feature_id, -1)
     feature_id[bidx, rows] = ids_c.to(feature_id.dtype)
     active = pad(tracks.active, False)
-    active[bidx, rows] = True
+    active[bidx, rows] = true
 
     n_valid = torch.sum(valid, dim=1)
     overflow = torch.clamp(n_valid - n_free[:, 0], min=0).to(torch.int32)

@@ -12,11 +12,15 @@ msckf.h:905-978, 1103-1124, 1325-1423):
 * Staged tracks are processed in chunks; their gated rows are compacted into
   a fixed ``max_update_rows`` budget in chunk order, with the overflow
   counted.
-* Measurement noise is isotropic σ² = u_var_prime; Joseph-form covariance
-  correction + symmetrization (msckf.h:1394-1403).
-
-Not ported yet (they raise NotImplementedError): ``use_qr_compression`` and
-``use_anisotropic_r``, both off in every shipped configuration.
+* Measurement noise defaults to isotropic σ² = u_var_prime;
+  ``FilterConfig.use_anisotropic_r`` gives the reference's exact projected
+  R_o = blockdiag_tracks(A_jᵀ diag(u_var', v_var') A_j) as
+  σu²I + (σv²-σu²)·(VVᵀ ⊙ same-track), with V the projected v-row indicator
+  columns and per-row track ids.
+* ``FilterConfig.use_qr_compression`` runs the reference's QR "T_H"
+  compression of the stacked rows (msckf.h:1343-1366) with zero-row masking
+  (:func:`compress_rows`); QR is ``torch.linalg.qr``.
+* Joseph-form covariance correction + symmetrization (msckf.h:1394-1403).
 """
 
 from __future__ import annotations
@@ -25,19 +29,12 @@ import torch
 
 from msckf_mono_tpu_torch.core import triangulate
 from msckf_mono_tpu_torch.core.types import FilterState, StagedTracks
-from msckf_mono_tpu_torch.core.window import stable_order
+from msckf_mono_tpu_torch.core.window import gather_rows, stable_order
 from msckf_mono_tpu_torch.ops import psd_cuda
 from msckf_mono_tpu_torch.ops.linalg import bmm_small, bmv, null_project_3
 from msckf_mono_tpu_torch.utils import quat
 from msckf_mono_tpu_torch.utils.chi2 import chi2_gate_table
 from msckf_mono_tpu_torch.utils.config import MsckfConfig
-
-
-def _check_supported(config: MsckfConfig):
-    if config.filter.use_anisotropic_r:
-        raise NotImplementedError("use_anisotropic_r is not ported yet")
-    if config.filter.use_qr_compression:
-        raise NotImplementedError("use_qr_compression is not ported yet")
 
 
 def track_projected_rows(obs, obs_mask, p_f_G, window, g, config: MsckfConfig,
@@ -46,15 +43,20 @@ def track_projected_rows(obs, obs_mask, p_f_G, window, g, config: MsckfConfig,
 
     obs: (..., N, 2), obs_mask: (..., N), p_f_G: (..., 3); the window poses
     ``window.q_CG`` (..., N, 4), ``window.p_C_G`` (..., N, 3) and gravity g
-    (..., 3) broadcast against the track axes. Returns (H_o (..., 2M-3, D), r_o (..., 2M-3),
-    rows_valid (..., 2M-3)) with M = min(m_cap, N) (M = N when ``m_cap`` is
-    None — the exact path). Mirrors msckf.h:905-978 including the
-    per-observation observability constraint A - A·u(uᵀu)⁻¹uᵀ.
+    (..., 3) broadcast against the track axes. Returns (H_o (..., 2M-3, D),
+    r_o (..., 2M-3), rows_valid (..., 2M-3), V) with M = min(m_cap, N)
+    (M = N when ``m_cap`` is None — the exact path). Mirrors
+    msckf.h:905-978 including the per-observation observability constraint
+    A - A·u(uᵀu)⁻¹uᵀ.
 
     A track with m <= m_cap observations is exact; beyond that the newest-slot
     observations are dropped (callers count the lost rows in row_overflow).
+
+    V is None unless ``filter.use_anisotropic_r``: then it is the
+    (..., 2M-3, M) projection of the v-row indicator columns, so the track's
+    projected noise A_jᵀ diag(u_var', v_var') A_j (msckf.h:411-431) is
+    σu²·I + (σv²-σu²)·V Vᵀ.
     """
-    _check_supported(config)
     dtype = obs.dtype
     dev = obs.device
     N = obs_mask.shape[-1]
@@ -124,8 +126,15 @@ def track_projected_rows(obs, obs_mask, p_f_G, window, g, config: MsckfConfig,
     # Left-nullspace projection of [H_cam | r]. The 15 IMU columns of H_x are
     # identically zero and the projection acts row-wise, so they are
     # prepended after it.
-    Xr = torch.cat([H_cam, r_rows[..., None]], dim=-1)                # (..., 2M, 6N+1)
-    proj = null_project_3(H_f_rows, Xr)                               # (..., 2M-3, 6N+1)
+    cols = [H_cam, r_rows[..., None]]
+    aniso = config.filter.use_anisotropic_r
+    if aniso:
+        # v-row indicator columns: row 2i+1 marks observation i's v residual
+        ind = (torch.arange(2 * M, device=dev)[:, None]
+               == 2 * torch.arange(M, device=dev)[None, :] + 1).to(dtype)
+        cols.append(ind.expand(lead + (2 * M, M)))
+    Xr = torch.cat(cols, dim=-1)                                      # (..., 2M, 6N+1[+M])
+    proj = null_project_3(H_f_rows, Xr)                               # (..., 2M-3, 6N+1[+M])
     R_rows = 2 * M - 3
     rows_valid = torch.arange(R_rows, device=dev) < torch.clamp(2 * m - 3, min=0)[..., None]
     rv = rows_valid.to(dtype)
@@ -133,7 +142,8 @@ def track_projected_rows(obs, obs_mask, p_f_G, window, g, config: MsckfConfig,
         [torch.zeros(lead + (R_rows, 15), dtype=dtype, device=dev), proj[..., : 6 * N]], dim=-1
     ) * rv[..., None]
     r_o = proj[..., 6 * N] * rv
-    return H_o, r_o, rows_valid
+    V = proj[..., 6 * N + 1:] * rv[..., None] if aniso else None
+    return H_o, r_o, rows_valid, V
 
 
 def _psd_solve(S, b):
@@ -183,20 +193,26 @@ def gated_row_stack(obs, obs_mask, p_f, track_ok, window, g, P, sigma2,
     chunk order; rows at or beyond the budget are dropped and counted.
 
     Returns (H (B, R_MAX, D), r (B, R_MAX), gate_ok (B, S), rows_present
-    (B, S), n_dropped (B,) int32). ``rows_present[b, s]`` is True iff track s
-    contributed at least one valid row. ``m_cap`` bounds the per-track
+    (B, S), n_dropped (B,) int32[, V (B, R_MAX, N), v_track_ids (B, R_MAX)
+    when ``use_anisotropic_r``]). ``v_track_ids[b, j]`` is 1 + the staged
+    index of the track that produced row j (0 for padding rows), so the
+    update can keep the reference's block-diagonal-per-track R_o.
+    ``rows_present[b, s]`` is True iff track s contributed at least one
+    valid row. ``m_cap`` bounds the per-track
     observation width (rows lost to it on contributing tracks are added to
     ``n_dropped``). ``carry`` chains a second staged set into the SAME row
     buffer; ``return_carry=True`` returns (gate_ok, rows_present, carry)
-    instead of the finalized stack.
+    instead of the finalized stack. The buffer's width does not depend on
+    the cap (V is padded to N columns), so differently-capped calls chain.
+    The buffer is sized from ``config.shapes.max_update_rows`` of this call.
     """
-    _check_supported(config)
     B, S, N, _ = obs.shape
     M = N if m_cap is None else max(2, min(int(m_cap), N))
     R = 2 * M - 3
     D = config.shapes.state_dim
     R_MAX = config.shapes.max_update_rows
-    W = D + 1
+    aniso = config.filter.use_anisotropic_r
+    W = D + 1 + (N + 1 if aniso else 0)
     C = min(chunk or config.shapes.staged_chunk, S)
     while S % C:
         C -= 1
@@ -223,12 +239,18 @@ def gated_row_stack(obs, obs_mask, p_f, track_ok, window, g, P, sigma2,
     gates, presents = [], []
     for c in range(n_chunks):
         s = slice(c * C, (c + 1) * C)
-        H_c, r_c, rv_c = track_projected_rows(obs[:, s], obs_mask[:, s], p_f[:, s],
-                                              win_b, g_t, config, m_cap=m_cap)
+        H_c, r_c, rv_c, V_c = track_projected_rows(obs[:, s], obs_mask[:, s], p_f[:, s],
+                                                   win_b, g_t, config, m_cap=m_cap)
         gate_c = gating_test_all(H_c, r_c, P, dof[:, s], sigma2, config)
         ok = track_ok[:, s] & gate_c
         rm = rv_c & ok[..., None]                                     # (B, C, R)
-        rows = torch.cat([H_c, r_c[..., None]], dim=-1).reshape(B, C * R, W)
+        cols = [H_c, r_c[..., None]]
+        if aniso:
+            # 1-based track ids (0 = padding row); V padded to the buffer's N
+            tid = (torch.arange(c * C, (c + 1) * C, device=dev) + 1).to(dtype)
+            cols += [torch.nn.functional.pad(V_c, (0, N - M)),
+                     tid[None, :, None, None].expand(B, C, R, 1)]
+        rows = torch.cat(cols, dim=-1).reshape(B, C * R, W)
         rmf = rm.reshape(B, C * R)
         nv = torch.sum(rmf, dim=1, dtype=torch.int32)
         tgt = count[:, None] + torch.cumsum(rmf, dim=1, dtype=torch.int32) - 1
@@ -250,7 +272,31 @@ def gated_row_stack(obs, obs_mask, p_f, track_ok, window, g, P, sigma2,
     H = buf[:, :R_MAX, :D]
     r = buf[:, :R_MAX, D]
     n_dropped = (torch.clamp(total - R_MAX, min=0) + capped).to(torch.int32)
-    return H, r, gate_ok, rows_present, n_dropped
+    out = (H, r, gate_ok, rows_present, n_dropped)
+    if aniso:
+        out = out + (buf[:, :R_MAX, D + 1:D + 1 + N], buf[:, :R_MAX, D + 1 + N])
+    return out
+
+
+def stack_rows(H_all, r_all, row_masks, config: MsckfConfig):
+    """Compact valid projected rows from all tracks into the fixed budget.
+
+    H_all: (B, S, R_t, D); r_all: (B, S, R_t); row_masks: (B, S, R_t).
+    Returns (H (B, R_MAX, D), r (B, R_MAX), n_dropped (B,) int32): the first
+    R_MAX valid rows in track-major order, zero rows after them.
+    """
+    R_MAX = config.shapes.max_update_rows
+    B, S, R_t, D = H_all.shape
+    flat_H = H_all.reshape(B, S * R_t, D)
+    flat_r = r_all.reshape(B, S * R_t)
+    flat_m = row_masks.reshape(B, S * R_t)
+    order = stable_order(~flat_m)[:, :R_MAX]
+    sel = torch.gather(flat_m, 1, order)
+    # a budget beyond the rows takes them all (the JAX slice is then short too)
+    H = gather_rows(flat_H, order) * sel[..., None]
+    r = torch.gather(flat_r, 1, order) * sel
+    n_dropped = torch.clamp(torch.sum(flat_m, dim=1) - R_MAX, min=0).to(torch.int32)
+    return H, r, n_dropped
 
 
 def apply_correction(state: FilterState, deltaX, config: MsckfConfig) -> FilterState:
@@ -275,28 +321,76 @@ def apply_correction(state: FilterState, deltaX, config: MsckfConfig) -> FilterS
     return state.replace(imu=imu, window=window)
 
 
-def measurement_update(state: FilterState, H, r, sigma2, config: MsckfConfig) -> FilterState:
+def compress_rows(H, r):
+    """QR measurement compression with nonzero-row masking (msckf.h:1343-1366).
+
+    H: (B, rows, D), r: (B, rows). H = Q₁·T_H with T_H the R factor; rows of
+    T_H whose largest entry is below 1e-6 of the largest row's are zeroed
+    with their r_n entries (the reference drops them). Returns (T_H (B, k, D),
+    r_n (B, k)), k = min(rows, D).
+    """
+    Q, R = torch.linalg.qr(H, mode="reduced")
+    r_n = (Q.transpose(-1, -2) @ r[..., None])[..., 0]
+    row_norm = torch.amax(torch.abs(R), dim=-1)
+    top = torch.clamp(torch.amax(row_norm, dim=-1, keepdim=True), min=1e-30)
+    keep = row_norm > 1e-6 * top
+    return R * keep[..., None], r_n * keep
+
+
+def measurement_update(state: FilterState, H, r, sigma2, config: MsckfConfig,
+                       V=None, v_track_ids=None) -> FilterState:
     """EKF update (msckf.h:1325-1423): Kalman gain via a Cholesky solve,
     multiplicative correction, Joseph-form covariance.
 
     H: (B, rows, D), r: (B, rows), sigma2: (B,). With isotropic R = σ²I the
     direct update equals the reference's QR-compressed one; zero padding
     rows contribute exact σ² diagonals and zero gain.
+    ``FilterConfig.use_qr_compression`` solves on the compressed rows instead.
+
+    ``V`` (B, rows, N): projected v-row coefficients (anisotropic-R mode).
+    The noise is then σu²I + dv·M with M = VVᵀ ⊙ [same track id] and
+    dv = σ²·(v_var'/u_var' − 1), the reference's block-diagonal R_o
+    (msckf.h:411-431). ``v_track_ids`` (B, rows) gives the per-row track tag;
+    without it all rows are one track. With QR compression as well, R_o is
+    projected as R_n = Q₁ᵀ R_o Q₁ (msckf.h:1365-1366), keeping the rows of
+    T_H that have any nonzero entry (msckf.h:1347) — an exact rule, unlike
+    :func:`compress_rows`' relative one.
     """
-    _check_supported(config)
     dtype = H.dtype
     D = H.shape[-1]
     P = state.P
     s2 = sigma2[:, None, None]
+    tr = lambda x: x.transpose(-1, -2)
+
+    if V is not None:
+        dv = (sigma2 * (config.v_var_prime / config.u_var_prime - 1.0))[:, None, None]
+        Mv = V @ tr(V)
+        if v_track_ids is not None:
+            Mv = Mv * (v_track_ids[:, :, None] == v_track_ids[:, None, :]).to(dtype)
+
+    if config.filter.use_qr_compression:
+        if V is None:
+            H, r = compress_rows(H, r)
+        else:
+            Q, Rq = torch.linalg.qr(H, mode="reduced")
+            keep = torch.amax(torch.abs(Rq), dim=-1) > 0.0
+            H = Rq * keep[..., None]
+            Q1 = Q * keep[:, None, :]
+            r = (tr(Q) @ r[..., None])[..., 0] * keep
+            Mv = tr(Q1) @ Mv @ Q1
 
     HP = H @ P
-    S_mat = HP @ H.transpose(-1, -2) + s2 * torch.eye(H.shape[-2], dtype=dtype, device=H.device)
-    K = _psd_solve(S_mat, HP).transpose(-1, -2)                       # (B, D, rows)
+    S_mat = HP @ tr(H) + s2 * torch.eye(H.shape[-2], dtype=dtype, device=H.device)
+    if V is not None:
+        S_mat = S_mat + dv * Mv
+    K = tr(_psd_solve(S_mat, HP))                                     # (B, D, rows)
     deltaX = (K @ r[..., None])[..., 0]
 
     IKH = torch.eye(D, dtype=dtype, device=H.device) - K @ H
-    P_new = IKH @ P @ IKH.transpose(-1, -2) + s2 * (K @ K.transpose(-1, -2))
-    P_new = 0.5 * (P_new + P_new.transpose(-1, -2))
+    P_new = IKH @ P @ tr(IKH) + s2 * (K @ tr(K))
+    if V is not None:
+        P_new = P_new + dv * (K @ Mv @ tr(K))
+    P_new = 0.5 * (P_new + tr(P_new))
 
     state = apply_correction(state, deltaX, config)
     return state.replace(P=P_new)
@@ -362,11 +456,12 @@ def marginalize(state: FilterState, staged: StagedTracks, config: MsckfConfig) -
     dtype = state.P.dtype
     sigma2 = state.meas_sigma2.to(dtype)
     p_f_G, track_ok, motion_ok, tri_ok = marginalize_prep(state, staged, config)
-    H, r, gate_ok, rows_present, n_dropped = gated_row_stack(
+    out = gated_row_stack(
         staged.obs, staged.obs_mask, p_f_G, track_ok, state.window, state.imu.g, state.P,
         sigma2, config, m_cap=config.shapes.marg_obs_cap or None,
     )
-    state = measurement_update(state, H, r, sigma2, config)
+    H, r, gate_ok, rows_present, n_dropped = out[:5]
+    state = measurement_update(state, H, r, sigma2, config, *out[5:])
     return marginalize_post(
         state, staged, p_f_G, track_ok, motion_ok, tri_ok, gate_ok,
         rows_present, n_dropped, config,

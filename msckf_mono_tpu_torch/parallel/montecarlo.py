@@ -4,9 +4,8 @@ The batched-filter axis is fed by perturbing the initial IMU state and
 biases; each perturbation is an independent filter sharing the same sensor
 stream. Random numbers come from an explicit ``torch.Generator`` (on the
 CPU, so a seed gives the same fleet on every device); they are not the JAX
-package's ``jax.random`` draws.
-
-Not ported yet: ``make_grid_fleet``.
+package's ``jax.random`` draws. :func:`make_grid_fleet` adds a per-filter
+noise-parameter grid on top.
 """
 
 from __future__ import annotations
@@ -58,6 +57,29 @@ def make_fleet(config: MsckfConfig, imu: ImuState, n: int, generator: torch.Gene
     imu = type(imu)(**{k: v.to(device=device, dtype=dtype) for k, v in vars(imu).items()})
     return init_filter_state(config, perturb_imu_state(imu, generator, n, **sigmas),
                              dtype=dtype, device=device)
+
+
+def make_grid_fleet(config: MsckfConfig, imu: ImuState, n: int,
+                    generator: torch.Generator | None = None, dtype=torch.float32,
+                    device="cuda", q_imu_scale=None, meas_sigma_px=None,
+                    **sigmas) -> FilterState:
+    """A fleet spanning a noise-parameter grid on top of the Monte-Carlo
+    init perturbations.
+
+    The noise parameters live in the state (``q_imu_diag``, ``meas_sigma2``),
+    so each filter of the batch integrates and updates with its own.
+    q_imu_scale: (n,) multiplies the config's Q_imu diagonal per filter.
+    meas_sigma_px: (n,) per-filter feature-noise sigma in pixels, converted
+    by (px / f_u)² (ros_interface.cpp:313-314).
+    """
+    fleet = make_fleet(config, imu, n, generator, dtype=dtype, device=device, **sigmas)
+    if q_imu_scale is not None:
+        scale = torch.as_tensor(q_imu_scale, dtype=dtype, device=device)[:, None]
+        fleet = fleet.replace(q_imu_diag=fleet.q_imu_diag * scale)
+    if meas_sigma_px is not None:
+        px = torch.as_tensor(meas_sigma_px, dtype=dtype, device=device)
+        fleet = fleet.replace(meas_sigma2=(px / config.camera.f_u) ** 2)
+    return fleet
 
 
 def broadcast_frames(frames, n: int):

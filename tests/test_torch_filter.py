@@ -30,6 +30,8 @@ from msckf_mono_tpu_torch.core.types import filter_state_from_numpy, filter_stat
 from msckf_mono_tpu_torch.data import synthetic as tsyn
 from msckf_mono_tpu_torch.parallel import montecarlo as tmc
 from msckf_mono_tpu_torch.parallel import sharding as tsharding
+from msckf_mono_tpu_torch.frontend.track_handler import TrackHandler
+from msckf_mono_tpu_torch.interface import VioInterface
 
 from tests import _torch_port as tp
 
@@ -166,6 +168,7 @@ def test_padded_frame_leaves_state_untouched(small_f64):
 
 
 @pytest.mark.parametrize("fn", [ttypes.init_imu_state, ttypes.init_filter_state, tinit.ground_truth_init,
-                                tinit.standstill_init, tmc.make_fleet, tsyn.to_frame_inputs])
+                                tinit.standstill_init, tmc.make_fleet, tsyn.to_frame_inputs,
+                                tmc.make_grid_fleet, VioInterface, TrackHandler])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

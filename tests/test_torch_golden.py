@@ -102,18 +102,26 @@ MODULES = sorted(
 )
 
 
+BLOCKED = ("jax", "jaxlib", "flax", "msckf_mono_tpu", "yaml", "PIL")
+
+
 def test_import_hygiene():
-    """Every port module imports with jax and the JAX package made unimportable."""
+    """Every port module imports with jax, the JAX package, PyYAML and Pillow
+    made unimportable (the port's data layer needs neither of the last two)."""
     for kernel in ("psd_cuda", "fast_cuda", "klt_cuda"):
         assert f"msckf_mono_tpu_torch.ops.{kernel}" in MODULES
-    assert len(MODULES) >= 36
+    for live in ("interface", "cli.run_euroc", "cli.run_synthetic", "frontend.track_handler",
+                 "frontend.ransac", "frontend.visualize", "data.asl", "data.sync", "data.penncosy",
+                 "data.native_loader", "data.png", "data.write_asl", "data.write_penncosy"):
+        assert f"msckf_mono_tpu_torch.{live}" in MODULES
+    assert len(MODULES) >= 51
     code = (
         "import sys, importlib\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'msckf_mono_tpu'):\n"
+        f"for name in {BLOCKED!r}:\n"
         "    sys.modules[name] = None\n"
         f"for m in {MODULES!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'msckf_mono_tpu')\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in {BLOCKED!r}\n"
         "       and sys.modules[m] is not None]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

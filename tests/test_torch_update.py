@@ -118,7 +118,7 @@ def test_track_projected_rows_match_jax(world, m_cap):
     win = tp.port_state(arrays).window
     win_b = win.replace(q_CG=win.q_CG[:, None], p_C_G=win.p_C_G[:, None])
     g = _t(arrays["imu.g"])[:, None]
-    H, r, rv = tupd.track_projected_rows(_t(staged["obs"]), _t(staged["obs_mask"]), _t(p_f), win_b, g,
+    H, r, rv, _ = tupd.track_projected_rows(_t(staged["obs"]), _t(staged["obs_mask"]), _t(p_f), win_b, g,
                                          TC, m_cap=m_cap)
     jwin = tp.jax_state(arrays, JC, jnp.float64).window
     jwin0 = jax.tree_util.tree_map(lambda x: x[0], jwin)
@@ -201,7 +201,7 @@ def test_gating_test_all_decisions_match_jax(world):
     arrays, staged, p_f = _row_stack_inputs(world)
     st = tp.port_state(arrays)
     win_b = st.window.replace(q_CG=st.window.q_CG[:, None], p_C_G=st.window.p_C_G[:, None])
-    H, r, _ = tupd.track_projected_rows(_t(staged["obs"]), _t(staged["obs_mask"]), _t(p_f), win_b,
+    H, r, _, _ = tupd.track_projected_rows(_t(staged["obs"]), _t(staged["obs_mask"]), _t(p_f), win_b,
                                         st.imu.g[:, None], TC)
     dof = torch.as_tensor(staged["obs_mask"].sum(-1) - 1)
     # inflate the residuals of half the tracks so both outcomes occur
@@ -256,9 +256,20 @@ def test_measurement_update_and_marginalize_match_jax(world):
 
 @pytest.mark.parametrize("flag", ["use_qr_compression", "use_anisotropic_r"])
 def test_unported_update_options_raise(world, flag):
+    """The two reference-parity options once raised NotImplementedError; now
+    ported, marginalize with each matches the JAX package (tests/
+    test_torch_update_qr.py holds them in more detail)."""
     arrays, staged = world
     tc = dataclasses.replace(TC, filter=dataclasses.replace(TC.filter, **{flag: True}))
+    jc = dataclasses.replace(JC, filter=dataclasses.replace(JC.filter, **{flag: True}))
     st = tp.port_state(arrays)
     t_staged = TStaged(**{k: _t(v) for k, v in staged.items()})
-    with pytest.raises(NotImplementedError):
-        tupd.marginalize(st, t_staged, tc)
+    got = filter_state_to_numpy(tupd.marginalize(st, t_staged, tc))
+    js = tp.jax_state(arrays, jc, jnp.float64)
+    j_staged = JStaged(**{k: _j(v) for k, v in staged.items()})
+    want = tp.jax_to_dict(jax.vmap(lambda s_, g_: jupd.marginalize(s_, g_, jc))(js, j_staged))
+    for k in want:
+        if np.issubdtype(want[k].dtype, np.floating):
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-6, atol=1e-9, err_msg=k)
+        else:
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
