@@ -23,11 +23,21 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
 4. [main], [profile], [gate]: the filter path on precomputed tracks, the
    serving configuration of bench.py (fused updates, caps 2/22, max_staged 8)
    on a 1024-filter fleet over the 200-frame synthetic sequence: make_fleet ->
-   run_sequence -> fleet_metrics, with launch counts; then, from the fleet's
-   state after frame 30, a profile of frames 30-32 (device time by kernel,
-   device-busy share) and a run of frames 30-33 that records every gamma
-   launch's inputs and holds its gamma and gate decisions against the plain
-   version on them;
+   run_sequence (one captured CUDA graph of the step, replayed a frame) ->
+   fleet_metrics, with launch counts and peak memory with the graph's pool;
+   then, from the fleet's state after frame 30, a profile of frames 30-32
+   (device time by kernel, device-busy share, device operations and graph
+   launches a frame) and an eager run of frames 30-33 that records every
+   gamma launch's inputs and holds its gamma and gate decisions against the
+   plain version on them;
+   [graph]: the step replayed from the cached graph against the same step
+   run eagerly (ops/cuda_graph.disabled()), frame by frame over the first 60
+   frames: bit-equal, or every counter and launch count equal and positions
+   within 1e-3 m; per-frame p50/p99, rates, synchronizing calls, and the
+   eager run's profile beside the replayed one;
+   [timing]: eval/timing.stage_timing at this configuration and batch on
+   bench.py --stages' inputs: each stage's device time (4 chained calls in
+   one replayed graph), flops and bytes counted by hand;
 5. [kernel] FAST and KLT: the FAST-10+NMS kernel equal to its plain version
    bit for bit on random and rendered images at (1, 480, 752), (64, 480, 752)
    and (1, 201, 300), at thresholds 0, 20 and 20.3, and on a view 4 bytes
@@ -40,11 +50,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    the image (the share of pixels that pass the pre-test);
 6. [image]: the image-in-the-loop path of bench.py's --images configuration,
    256 filters sharing one rendered 480 x 752 camera over 200 frames
-   (make_fleet -> init_frontend_state -> batched_run_images_shared):
-   image-frame-steps/s, ATE(filter 0), counters, peak memory and exact launch
-   counts (FAST T, KLT 4T, gamma 2T);
-7. [image-profile], [replay]: from the shared fleet's state after frame 30, a
-   profile of frames 30-32, and a run of frames 30-33 that records every FAST
+   (make_fleet -> init_frontend_state -> batched_run_images_shared, one
+   replayed graph a frame): image-frame-steps/s, ATE(filter 0), counters,
+   peak memory and exact launch counts (FAST T, KLT 4T, gamma 2T);
+7. [image-profile], [image-graph], [replay]: from the shared fleet's state
+   after frame 30, a profile of frames 30-32; the replay-against-eager
+   comparison of [graph] on this path; and an eager run of frames 30-33
+   that records every FAST
    and KLT launch's inputs and outputs and replays them through the plain
    versions (FAST exact, with each launch's bound and candidate share; KLT as
    in phase 5), counting the live LK iterations
@@ -60,15 +72,24 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    [live-data] the world written as a EuRoC tree by data/write_asl.py and
    read back by data/asl.py (images bit-equal; which decoder served);
    [live-cli] cli/run_euroc on that tree (GT init, --finish);
-   [live] VioInterface driven by imu_callback at 200 Hz and image_callback,
-   then finish(): image_callback latency p50/p99 against the camera's
-   50 ms, frames/s, ATE and drift, the getters, exact launch counts,
-   device->host copies and synchronizing CUDA calls a frame (by site);
+   [live] VioInterface driven by imu_callback at 200 Hz and image_callback
+   (the frame replayed from one captured graph from the second image on;
+   frames 30-33 eager, their launches recorded), then finish(): the
+   image_callback latency p50/p99 against the camera's 50 ms, frames/s,
+   ATE and drift, the getters, exact launch counts, device->host copies and
+   synchronizing CUDA calls a frame (by site; at most the frame's one copy
+   back from the third frame on);
    [live-profile] frames 30-32 of a fresh run under the profiler;
+   [live-graph] the same interface under ops/cuda_graph.disabled() over 60
+   frames: ids equal to [live]'s on every frame, positions within 1e-3 m,
+   latency, syncs and profile beside [live]'s;
    [live-parity] 60 frames with use_qr_compression and use_anisotropic_r;
    [live-replay] every gamma, FAST and KLT launch of frames 30-33 of
    [live] against the plain versions (as phase 7), then each kernel's
    times and bound at the live shapes.
+
+The entry points replay CUDA graphs by default (ops/cuda_graph.py); the
+phases that record kernel launches in Python run their frames eagerly.
 
 Kernel times: ``ms`` is one call's CUDA-event time, the host's launch work
 included (the median of 25 calls); ``device_ms`` is device time per launch
@@ -381,6 +402,7 @@ def phase_main(torch, batch, frames):
     from msckf_mono_tpu_torch.core.types import tree_map
     from msckf_mono_tpu_torch.data import synthetic
     from msckf_mono_tpu_torch.eval.ate import ate_rmse
+    from msckf_mono_tpu_torch.ops import cuda_graph
     from msckf_mono_tpu_torch.parallel import montecarlo, sharding
 
     cfg = serving_config(batch)
@@ -394,12 +416,17 @@ def phase_main(torch, batch, frames):
     make = lambda: montecarlo.make_fleet(cfg, imu, batch, torch.Generator().manual_seed(0),
                                          dtype=torch.float32, device="cuda")
 
-    # Warm-up on two frames (library handles, allocator), outside the count.
+    # Warm-up on two frames, outside the count: on the card it captures the
+    # step's graph (library handles, allocator, the graph's pool).
     warm = tree_map(lambda x: x[:2], frames_dev)
-    run(make(), warm)
-    states = make()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run(make(), warm)
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    states = make()
+    torch.cuda.synchronize()
     _zero_counts()
     t0 = time.perf_counter()
     final, outs = run(states, frames_dev)
@@ -414,9 +441,11 @@ def phase_main(torch, batch, frames):
     ate0 = ate_rmse(est[:, 0], seq.gt_p)
     m = {k: float(v) for k, v in metrics.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[main] serving config, {batch} filters x {frames} frames, f32 on cuda: "
-        f"{seconds:.2f} s, {batch * frames / seconds:.1f} frame-steps/s, "
-        f"peak memory {peak:.2f} GiB")
+    reserved = torch.cuda.max_memory_reserved() / 2**30
+    log(f"[main] serving config, {batch} filters x {frames} frames, f32 on cuda, one replayed "
+        f"graph a frame: {seconds:.2f} s, {batch * frames / seconds:.1f} frame-steps/s, "
+        f"peak memory {peak:.2f} GiB allocated, {reserved:.2f} GiB reserved with the graph's "
+        f"pool (capture and 2 warm-up frames {capture_s:.2f} s)")
     log(f"[main] ATE(filter 0) {ate0:.4f} m (BENCH_r05 {BENCH_R05['ate_m']}); "
         f"residualized {int(m['total_residualized'])} ({BENCH_R05['residualized']}), "
         f"row_overflow {int(m['total_row_overflow'])} ({BENCH_R05['row_overflow']}), "
@@ -429,9 +458,14 @@ def phase_main(torch, batch, frames):
     lo = min(30, frames // 2)
     mid, _ = run(make(), tree_map(lambda x: x[:lo], frames_dev))
     prof_frames = tree_map(lambda x: x[lo:lo + PROFILE_FRAMES], frames_dev)
-    phase_profile(torch, "profile", lambda: run(mid, prof_frames), 1e3 * seconds / frames)
+    frame_ms = 1e3 * seconds / frames
+    profile = phase_profile(torch, "profile", lambda: run(mid, prof_frames), frame_ms)
     phase_gate(torch, cfg, run, mid, tree_map(lambda x: x[lo:lo + GATE_FRAMES], frames_dev))
-    return launches
+    main = dict(cfg=cfg, final=final, outs=outs, frames=frames_dev, make=make,
+                steps_per_s=batch * frames / seconds, frame_ms=frame_ms, peak_gib=peak,
+                reserved_gib=reserved, capture_s=capture_s, profile=profile,
+                profile_go=lambda: run(mid, prof_frames))
+    return launches, main
 
 
 PROFILE_FRAMES = 3
@@ -444,7 +478,7 @@ def phase_gate(torch, cfg, run, state, frames):
     every gate its dof; afterwards gamma_psd_plain runs on the recorded
     inputs, and its gamma and gate decisions must match the kernel's."""
     from msckf_mono_tpu_torch.core import update
-    from msckf_mono_tpu_torch.ops import psd_cuda
+    from msckf_mono_tpu_torch.ops import cuda_graph, psd_cuda
     from msckf_mono_tpu_torch.utils.chi2 import gate_threshold
 
     gate, kernel = update.gating_test_all, psd_cuda.gamma_psd
@@ -462,7 +496,8 @@ def phase_gate(torch, cfg, run, state, frames):
     before = kernel.launches
     psd_cuda.gamma_psd, update.gating_test_all = record_launch, record_dof
     try:
-        run(state, frames)
+        with cuda_graph.disabled():        # a replayed graph calls no Python
+            run(state, frames)
     finally:
         psd_cuda.gamma_psd, update.gating_test_all = kernel, gate
     n_frames = frames.time.shape[0]
@@ -726,10 +761,14 @@ def phase_image(torch, tag, seq, imgs, B, independent):
                                       dtype=torch.float32, device="cuda"),
                 init_frontend_state(H, W, fcfg, B, Bi, torch.float32, device="cuda"))
 
-    run(*make(), tree_map(lambda x: x[:2], frames))        # warm-up, outside the count
-    states, fstates = make()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run(*make(), tree_map(lambda x: x[:2], frames))        # capture and warm-up, outside the count
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    states, fstates = make()
+    torch.cuda.synchronize()
     _zero_counts()
     t0 = time.perf_counter()
     final, ffinal, outs = run(states, fstates, frames)
@@ -743,10 +782,13 @@ def phase_image(torch, tag, seq, imgs, B, independent):
     ate0 = ate_rmse(est[:, 0], seq.gt_p[:T])
     m = {k: float(v) for k, v in metrics.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
+    reserved = torch.cuda.max_memory_reserved() / 2**30
     ref = BENCH_IMAGES_ATE["independent" if independent else "shared"]
     log(f"[{tag}] {B} filters x {T} frames, {'independent streams' if independent else 'one shared camera'}, "
-        f"{H}x{W}, f32 on cuda: {seconds:.2f} s, {B * T / seconds:.1f} image-frame-steps/s, "
-        f"peak memory {peak:.2f} GiB")
+        f"{H}x{W}, f32 on cuda, one replayed graph a frame: {seconds:.2f} s, "
+        f"{B * T / seconds:.1f} image-frame-steps/s, peak memory {peak:.2f} GiB allocated, "
+        f"{reserved:.2f} GiB reserved with the graph's pool (capture and 2 warm-up frames "
+        f"{capture_s:.2f} s)")
     log(f"[{tag}] ATE(filter 0) {ate0:.4f} m (JAX package on a TPU, BENCH_IMAGES.json: {ref}); "
         f"residualized {int(m['total_residualized'])}, row_overflow {int(m['total_row_overflow'])}, "
         f"staged_overflow {int(m['total_staged_overflow'])}, mean cam count "
@@ -758,15 +800,21 @@ def phase_image(torch, tag, seq, imgs, B, independent):
           f"[{tag}] launches FAST {fast_n}, KLT {klt_n}, gamma {gamma_n}; expected "
           f"{T}, {4 * T}, {2 * T}")
     result = dict(B=B, T=T, seconds=seconds, steps_per_s=B * T / seconds, ate0=ate0,
-                  peak_gib=peak, launches=dict(fast=fast_n, klt=klt_n, gamma=gamma_n), **m)
+                  peak_gib=peak, reserved_gib=reserved, capture_s=capture_s,
+                  launches=dict(fast=fast_n, klt=klt_n, gamma=gamma_n), **m)
 
     # Mid-sequence frames from the path's own state after frame lo.
     lo = min(30, T // 2)
     mid, fmid, _ = run(*make(), tree_map(lambda x: x[:lo], frames))
     if not independent:
         prof_frames = tree_map(lambda x: x[lo:lo + PROFILE_FRAMES], frames)
-        phase_profile(torch, "image-profile", lambda: run(mid, fmid, prof_frames),
-                      1e3 * seconds / T)
+        go = lambda: run(mid, fmid, prof_frames)
+        profile = phase_profile(torch, "image-profile", go, 1e3 * seconds / T)
+        main = dict(profile=profile, profile_go=go, frame_ms=1e3 * seconds / T, peak_gib=peak,
+                    reserved_gib=reserved, capture_s=capture_s)
+        result["graph"] = phase_graph(
+            torch, "image-graph", pipeline.step, (cfg, fcfg), make,
+            frames.replace(image=frames.image[:, None]), main)
     result["replay"] = phase_replay(torch, "replay-indep" if independent else "replay", run, mid,
                                     fmid, tree_map(lambda x: x[lo:lo + GATE_FRAMES], frames))
     return result
@@ -778,7 +826,7 @@ def phase_replay(torch, tag, run, state, fstate, frames):
     then go through the plain versions. Also counts the live LK iterations
     and the pixels read (for the KLT bound) and times the KLT kernel on the
     first frame's inputs."""
-    from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda
+    from msckf_mono_tpu_torch.ops import cuda_graph, fast_cuda, klt_cuda
 
     fast, track = fast_cuda.fast_nms_score, klt_cuda.track_level
     fast_calls, klt_calls = [], []
@@ -796,7 +844,8 @@ def phase_replay(torch, tag, run, state, fstate, frames):
     before = _counts()
     fast_cuda.fast_nms_score, klt_cuda.track_level = rec_fast, rec_klt
     try:
-        run(state, fstate, frames)
+        with cuda_graph.disabled():        # a replayed graph calls no Python
+            run(state, fstate, frames)
     finally:
         fast_cuda.fast_nms_score, klt_cuda.track_level = fast, track
     n_frames = frames.time.shape[0]
@@ -887,31 +936,172 @@ def _klt_replay(torch, tag, klt_calls, track):
     return klt
 
 
+GRAPH_EAGER_FRAMES = 60       # frames run both eagerly and from the graph
+GRAPH_POS_ATOL_M = 1e-3       # positions, where replay and eager are not bit-equal
+
+
+def _tree_equal(torch, a, b):
+    from msckf_mono_tpu_torch.ops import cuda_graph
+
+    la, lb = cuda_graph.flatten(a)[0], cuda_graph.flatten(b)[0]
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def phase_graph(torch, tag, step, static, make, frames, main):
+    """A path's step replayed from its cached graph against the same step
+    run eagerly, on the same inputs: the first GRAPH_EAGER_FRAMES frames,
+    one at a time with the device synchronized after each (per-frame times,
+    synchronizing calls), then 3 frames of each under the profiler. Replay
+    must equal eager bit for bit, or else have every counter and launch
+    count equal and positions within GRAPH_POS_ATOL_M."""
+    from msckf_mono_tpu_torch.core.types import tree_map
+    from msckf_mono_tpu_torch.ops import cuda_graph
+    from msckf_mono_tpu_torch.parallel import sharding
+
+    n = GRAPH_EAGER_FRAMES
+    at = lambda t: tree_map(lambda x: x[t], frames)
+    runs = {}
+    for mode in ("eager", "replay"):
+        carry = make()
+        graph = cuda_graph.step_graph(step, carry, (at(0),), static) if mode == "replay" else None
+        replays = graph.replays if graph is not None else 0
+        syncs, times, pos = SyncCounter(torch), [], []
+        torch.cuda.synchronize()
+        _zero_counts()
+        for t in range(n):
+            t0 = time.perf_counter()
+            with syncs:
+                if graph is None:
+                    carry, out = step(carry, at(t), *static)
+                else:
+                    carry, out = graph(carry, at(t))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            pos.append(out.p_I_G.clone())
+        state = carry[0] if isinstance(carry, tuple) else carry
+        runs[mode] = dict(carry=cuda_graph.clone(carry), pos=torch.stack(pos), launches=_counts(),
+                          syncs=syncs.count / n, p50=_percentile(times, 50), p99=_percentile(times, 99),
+                          rate=n / (sum(times) / 1e3),
+                          metrics={k: int(v) for k, v in sharding.fleet_metrics(state).items()
+                                   if k.startswith("total")},
+                          diag={k: v.clone() for k, v in vars(state.diag).items()},
+                          replays=(graph.replays - replays) if graph is not None else 0)
+    e, r = runs["eager"], runs["replay"]
+    same = _tree_equal(torch, e["carry"], r["carry"]) and torch.equal(e["pos"], r["pos"])
+    err = float((e["pos"] - r["pos"]).abs().max())
+    log(f"[{tag}] {n} frames, eager against replayed from the cached graph ({r['replays']} "
+        f"replays): bit-equal {same}; max position difference {err:.3e} m; counters eager "
+        f"{e['metrics']}, replay {r['metrics']}; launches (FAST, KLT, gamma) eager {e['launches']}, "
+        f"replay {r['launches']}")
+    check(r["replays"] == n, f"[{tag}] {r['replays']} replays over {n} frames")
+    check(e["launches"] == r["launches"], f"[{tag}] launches differ")
+    check(e["metrics"] == r["metrics"], f"[{tag}] counters differ")
+    check(all(torch.equal(e["diag"][k], r["diag"][k]) for k in e["diag"]),
+          f"[{tag}] per-filter diagnostics differ")
+    check(same or err <= GRAPH_POS_ATOL_M, f"[{tag}] positions differ by {err:.3e} m")
+    with cuda_graph.disabled():
+        eager_profile = phase_profile(torch, f"{tag}-eager-profile", main["profile_go"],
+                                      1e3 / e["rate"])
+    p = main["profile"]
+    log(f"[{tag}] per frame, eager / replay: {e['p50']:.2f} / {r['p50']:.2f} ms p50, "
+        f"{e['p99']:.2f} / {r['p99']:.2f} ms p99 (device synchronized each frame); "
+        f"{e['rate']:.2f} / {r['rate']:.2f} frames/s over {n} frames, the main run "
+        f"{1e3 / main['frame_ms']:.2f} frames/s; device busy {100 * eager_profile['busy_share']:.1f}% / "
+        f"{100 * p['busy_share']:.1f}%; device ops {eager_profile['ops']:.0f} / {p['ops']:.0f} and "
+        f"graph launches {eager_profile['graph_launches']:.1f} / {p['graph_launches']:.1f} a frame; "
+        f"synchronizing calls {e['syncs']:.2f} / {r['syncs']:.2f} a frame; peak memory "
+        f"{main['peak_gib']:.2f} GiB allocated, {main['reserved_gib']:.2f} GiB reserved with the "
+        f"graph's pool")
+    return dict(frames=n, bit_equal=same, max_pos_diff_m=err,
+                eager={k: e[k] for k in ("p50", "p99", "rate", "syncs")},
+                replay={k: r[k] for k in ("p50", "p99", "rate", "syncs")},
+                launches=list(r["launches"]), eager_profile=eager_profile, replay_profile=p,
+                main_frames_per_s=1e3 / main["frame_ms"], peak_gib=main["peak_gib"],
+                reserved_gib=main["reserved_gib"], capture_s=main["capture_s"])
+
+
+def phase_timing(torch, main):
+    """eval/timing.stage_timing at the filter path's serving configuration
+    and batch, on bench.py --stages' inputs: the main run's final state
+    propagated, augmented and updated by the last frame, that frame, and
+    the tracks it staged. Device time per call of each stage (4 chained
+    calls in one replayed graph), with its flops and bytes counted by hand
+    over one eager call (the definitions are in stage_timing's docstring)."""
+    from msckf_mono_tpu_torch.core import augment, tracks
+    from msckf_mono_tpu_torch.core import filter as msckf_filter
+    from msckf_mono_tpu_torch.eval import timing
+
+    cfg, frames = main["cfg"], main["frames"]
+    f = msckf_filter.frame_at(frames, frames.time.shape[0] - 1)
+    s = msckf_filter.propagate_block(main["final"], f, cfg)
+    s = augment.augment_state(s, f.state_id, f.time, cfg)
+    s, staged = tracks.update_tracks(s, f.tracked_uv, f.tracked_ids, f.tracked_valid, cfg)
+    t0 = time.perf_counter()
+    table = timing.stage_timing(s, f, staged, cfg, reps=4, cost=True)
+    check(tuple(table) == timing.STAGES, f"[timing] stages {tuple(table)}")
+    B = s.P.shape[0]
+    log(f"[timing] eval/timing.stage_timing, serving config, {B} filters, f32, 4 chained calls a "
+        f"replayed graph ({time.perf_counter() - t0:.1f} s); flops: the matrix-product family only "
+        f"(FlopCounterMode); bytes: every non-view operator's operands and results; the "
+        f"hand-written kernels' own reads and arithmetic are in neither")
+    log(f"[timing]   {'stage':20s} {'ms':>9s} {'GFLOP':>8s} {'GB':>8s} {'GB/s':>8s} {'TFLOP/s':>8s}")
+    rows = {}
+    for name, (sec, flops, nbytes) in table.items():
+        check(sec > 0 and np.isfinite(sec), f"[timing] {name}: {sec} s")
+        rows[name] = dict(ms=sec * 1e3, gflop=flops / 1e9, gbytes=nbytes / 1e9)
+        log(f"[timing]   {name:20s} {sec * 1e3:9.3f} {flops / 1e9:8.2f} {nbytes / 1e9:8.3f} "
+            f"{nbytes / sec / 1e9:8.1f} {flops / sec / 1e12:8.3f}")
+    return rows
+
+
 def phase_profile(torch, tag, go, frame_ms):
     """Where a frame's time goes: device time by kernel over PROFILE_FRAMES
-    frames of a fleet (``go`` runs them), and the device's busy share of a
-    frame. The profiler slows the host, so the busy share is taken against
-    ``frame_ms``, the unprofiled frame time of the path's main run."""
-    from torch.profiler import ProfilerActivity, profile
+    frames of a path (``go`` runs them; ``eval/profile.trace``), the
+    device's busy share of a frame, device operations and graph launches a
+    frame, and the hand-written kernels' device time a frame. The profiler
+    slows the host, so the busy share is taken against ``frame_ms``, the
+    unprofiled frame time of the path's main run."""
+    import tempfile
+
+    from msckf_mono_tpu_torch.eval import profile as port_profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        go()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    with tempfile.TemporaryDirectory() as logdir:
+        with port_profile.trace(logdir):
+            t0 = time.perf_counter()
+            go()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    prof = port_profile.trace.last
+    events = prof.events()
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    launches = sum(1 for e in events if e.device_type != torch.autograd.DeviceType.CUDA
+                   and e.name in ("cudaGraphLaunch", "cuGraphLaunch"))
     busy_ms = _union_ms([(e.time_range.start, e.time_range.end) for e in kernels])
     busy = busy_ms / PROFILE_FRAMES
     check(busy > 0, f"[{tag}] the profiler saw no device time")
-    log(f"[{tag}] {PROFILE_FRAMES} frames under the profiler: wall {wall_ms:.1f} ms, "
-        f"{len(kernels) / PROFILE_FRAMES:.0f} device ops/frame, device busy {busy:.2f} ms/frame "
-        f"= {100 * busy / frame_ms:.1f}% of the unprofiled {frame_ms:.2f} ms/frame")
     rows = sorted((a for a in prof.key_averages() if a.device_type == torch.autograd.DeviceType.CUDA),
                   key=lambda a: a.self_device_time_total, reverse=True)
+    mine = {}
+    for a in rows:
+        for name, prefix in (("gamma", "gamma_"), ("fast", "fast_nms"), ("klt", "klt_")):
+            if a.key.startswith(prefix) or f" {prefix}" in a.key or f"::{prefix}" in a.key:
+                t, n = mine.get(name, (0.0, 0.0))
+                mine[name] = (t + a.self_device_time_total / 1e3 / PROFILE_FRAMES,
+                              n + a.count / PROFILE_FRAMES)
+    out = dict(wall_ms=wall_ms / PROFILE_FRAMES, busy_ms=busy, busy_share=busy / frame_ms,
+               ops=len(kernels) / PROFILE_FRAMES, graph_launches=launches / PROFILE_FRAMES,
+               kernels={k: dict(ms=t, calls=n) for k, (t, n) in mine.items()})
+    log(f"[{tag}] {PROFILE_FRAMES} frames under the profiler: wall {wall_ms:.1f} ms, "
+        f"{out['ops']:.0f} device ops/frame, {out['graph_launches']:.1f} graph launches/frame, "
+        f"device busy {busy:.2f} ms/frame = {100 * busy / frame_ms:.1f}% of the unprofiled "
+        f"{frame_ms:.2f} ms/frame; hand-written kernels a frame: "
+        + ", ".join(f"{k} {v['ms']:.4f} ms in {v['calls']:.0f} launches"
+                    for k, v in out["kernels"].items()))
     for a in rows[:15]:
         log(f"[{tag}]   {a.self_device_time_total / 1e3 / PROFILE_FRAMES:9.3f} ms/frame "
             f"{a.count / PROFILE_FRAMES:8.1f} calls/frame  {a.key[:90]}")
+    return out
 
 
 def _union_ms(spans):
@@ -1069,20 +1259,20 @@ def phase_live_cli(torch, root, info, frames):
     argv = ["--data", root, "--init", "gt", "--stand-still-end", str(info["t0_ns"] / 1e9),
             "--finish", "--out", out]
     copies = [0]
-    to_host = interface.to_host
+    unpack = interface._unpack                # every host copy of the interface's ends here
 
-    def counted(tensors):
+    def counted(flat, like):
         copies[0] += 1
-        return to_host(tensors)
+        return unpack(flat, like)
 
     torch.cuda.synchronize()
     _zero_counts()
-    interface.to_host = counted
+    interface._unpack = counted
     try:
         with SyncCounter(torch) as syncs, contextlib.redirect_stdout(io.StringIO()):
             report = run_euroc.main(argv)
     finally:
-        interface.to_host = to_host
+        interface._unpack = unpack
     launches = _counts()
     dat = np.load(out)
     cfg = MsckfConfig()
@@ -1105,17 +1295,21 @@ def phase_live_cli(torch, root, info, frames):
                 host_copies_per_frame=copies[0] / frames, syncs_per_frame=syncs.count / frames)
 
 
-def _live_frame(torch, vio, seq, imgs_host, i, latencies=None, syncs=None):
+def _live_frame(torch, vio, seq, imgs_host, i, latencies=None, syncs=None, per_frame=None):
     """Frame i: its IMU readings at 200 Hz through imu_callback, then the
-    image through image_callback, timed with the device synchronized."""
+    image through image_callback, timed with the device synchronized;
+    ``per_frame`` gets the frame's count of synchronizing calls."""
     K = seq.imu_omega.shape[1]
     for k in range(K):
         vio.imu_callback(seq.imu_omega[i, k], seq.imu_acc[i, k],
                          float(seq.time[i]) - (K - 1 - k) * 0.005, dt=float(seq.imu_dt[i, k]))
     t0 = time.perf_counter()
     if syncs is not None:
+        before = syncs.count
         with syncs:
             ran = vio.image_callback(imgs_host[i], float(seq.time[i]))
+        if per_frame is not None:
+            per_frame.append(syncs.count - before)
     else:
         ran = vio.image_callback(imgs_host[i], float(seq.time[i]))
     torch.cuda.synchronize()
@@ -1137,20 +1331,26 @@ def phase_live(torch, tag, seq, imgs, frames, cfg, recorder=None):
     ``recorder`` records the launches of frames LIVE_REPLAY."""
     from msckf_mono_tpu_torch.eval.ate import ate_rmse, final_drift
 
+    from msckf_mono_tpu_torch.ops import cuda_graph
+
     imgs_host = imgs[:frames].cpu().numpy()
     vio = _live_interface(cfg, seq)
-    est, lat = [], []
+    est, lat, ids, per_frame = [], [], [], []
     syncs = SyncCounter(torch)
     torch.cuda.synchronize()
     _zero_counts()
     t0 = time.perf_counter()
     for i in range(frames):
-        if recorder is not None and i == LIVE_REPLAY[0]:
+        if recorder is not None and i in LIVE_REPLAY:
+            # the recorded frames run eagerly: a replayed graph calls no Python
             recorder.on()
-        _live_frame(torch, vio, seq, imgs_host, i, lat, syncs)
-        if recorder is not None and i == LIVE_REPLAY[-1]:
+            with cuda_graph.disabled():
+                _live_frame(torch, vio, seq, imgs_host, i, lat, syncs, per_frame)
             recorder.off()
+        else:
+            _live_frame(torch, vio, seq, imgs_host, i, lat, syncs, per_frame)
         est.append(vio.odometry()["p_I_G"])
+        ids.append(vio.track_handler.cur_ids[0].cpu().numpy().copy())
     n_map_before = len(vio.map())
     t1 = time.perf_counter()
     vio.finish()
@@ -1163,13 +1363,20 @@ def phase_live(torch, tag, seq, imgs, frames, cfg, recorder=None):
     check(np.all(np.isfinite(est)), f"[{tag}] non-finite trajectory")
     ate, drift = ate_rmse(est, seq.gt_p[:frames]), final_drift(est, seq.gt_p[:frames])
     cs, pruned, overlay = vio.cam_states(), vio.pruned_states(), vio.track_overlay()
-    p50, p99 = _percentile(lat, 50), _percentile(lat, 99)
+    # latency of the replayed frames: not the first (eager), the second (the
+    # capture) or the recorded ones (eager)
+    eager_frames = {0, 1} | (set(LIVE_REPLAY) if recorder is not None else set())
+    replayed = [x for i, x in enumerate(lat) if i not in eager_frames]
+    p50, p99 = _percentile(replayed, 50), _percentile(replayed, 99)
     log(f"[{tag}] VioInterface on cuda, {frames} frames, default MsckfConfig"
         f"{' + use_qr_compression + use_anisotropic_r' if cfg.filter.use_qr_compression else ''}, "
-        f"TrackHandler 128 features / {IMAGE_WINDOW} px / 4 levels: image_callback p50 "
-        f"{p50:.2f} ms, p99 {p99:.2f} ms, max {max(lat):.2f} ms (camera period "
-        f"{CAMERA_PERIOD_MS:.0f} ms: {'kept up' if p99 <= CAMERA_PERIOD_MS else 'NOT kept up'}); "
-        f"{frames / seconds:.2f} frames/s over {seconds:.1f} s incl. finish() {finish_ms:.1f} ms")
+        f"TrackHandler 128 features / {IMAGE_WINDOW} px / 4 levels: image_callback of the "
+        f"{len(replayed)} replayed frames p50 {p50:.2f} ms, p99 {p99:.2f} ms, max {max(replayed):.2f} "
+        f"ms (camera period {CAMERA_PERIOD_MS:.0f} ms: "
+        f"{'kept up' if p99 <= CAMERA_PERIOD_MS else 'NOT kept up'}); all {frames} frames p50 "
+        f"{_percentile(lat, 50):.2f} ms, p99 {_percentile(lat, 99):.2f} ms; the first frame "
+        f"{lat[0]:.1f} ms, the second (capture) {lat[1]:.1f} ms; {frames / seconds:.2f} frames/s "
+        f"over {seconds:.1f} s incl. finish() {finish_ms:.1f} ms")
     log(f"[{tag}] ATE {ate:.4f} m (limit {ATE_GATE_M}), final drift {drift:.4f} m; map "
         f"{n_map_before} points before finish(), {len(vio.map())} after; {len(pruned['state_id'])} "
         f"pruned poses; window {len(cs['state_id'])} poses; map_points() {vio.map_points().shape}; "
@@ -1178,14 +1385,27 @@ def phase_live(torch, tag, seq, imgs, frames, cfg, recorder=None):
         f"{want[0]}, {want[1]}, {want[2]}); device->host copies {vio.host_copies} "
         f"({vio.host_copies / frames:.2f} a frame), synchronizing CUDA calls in image_callback "
         f"{syncs.count} ({syncs.count / frames:.2f} a frame: {syncs.summary(frames)})")
+    replays = sum(g.replays for g in vio._live_frame.graphs.values())
+    steady = [c for i, c in enumerate(per_frame) if i >= 2]       # after the capture at frame 2
+    log(f"[{tag}] {replays} frames replayed from the captured frame graph "
+        f"({frames - replays} eager: the first, and the recorded ones); synchronizing calls a "
+        f"frame from the third frame on: max {max(steady)}, mean {np.mean(steady):.2f}")
     check(drift < 1.0, f"[{tag}] final drift {drift:.4f} m >= 1 m")
     check(tuple(launches) == want, f"[{tag}] launches {launches}, expected {want}")
     check(overlay.shape == (cfg.camera.height, cfg.camera.width, 3), f"[{tag}] overlay {overlay.shape}")
     check(len(vio.map()) >= n_map_before > 0, f"[{tag}] map {n_map_before} -> {len(vio.map())}")
-    return dict(frames=frames, p50_ms=p50, p99_ms=p99, max_ms=max(lat), frames_per_s=frames / seconds,
+    check(max(steady) <= 1, f"[{tag}] {max(steady)} synchronizing calls in a frame: more than the "
+          f"frame's one copy back")
+    n_eager = 1 + (len(LIVE_REPLAY) if recorder is not None else 0)
+    check(replays == frames - n_eager, f"[{tag}] {replays} replayed frames of {frames}")
+    return dict(frames=frames, p50_ms=p50, p99_ms=p99, max_ms=max(replayed),
+                p50_all_ms=_percentile(lat, 50), p99_all_ms=_percentile(lat, 99),
+                first_ms=lat[0], capture_frame_ms=lat[1], frames_per_s=frames / seconds,
                 finish_ms=finish_ms, ate=ate, final_drift=drift, map_points=len(vio.map()),
                 pruned=len(pruned["state_id"]), launches=dict(zip(("fast", "klt", "gamma"), launches)),
-                host_copies_per_frame=vio.host_copies / frames, syncs_per_frame=syncs.count / frames)
+                host_copies_per_frame=vio.host_copies / frames, syncs_per_frame=syncs.count / frames,
+                steady_syncs_max=max(steady), replayed_frames=replays,
+                _ids=np.asarray(ids), _pos=est, _lat=lat)
 
 
 def phase_live_profile(torch, seq, imgs, cfg, frame_ms):
@@ -1200,7 +1420,73 @@ def phase_live_profile(torch, seq, imgs, cfg, frame_ms):
         for i in range(lo, lo + PROFILE_FRAMES):
             _live_frame(torch, vio, seq, imgs_host, i)
 
-    phase_profile(torch, "live-profile", go, frame_ms)
+    return phase_profile(torch, "live-profile", go, frame_ms)
+
+
+def phase_live_graph(torch, seq, imgs, cfg, live, live_profile):
+    """VioInterface under cuda_graph.disabled() (every frame eager) over the
+    first GRAPH_EAGER_FRAMES frames of [live]'s inputs, against [live]'s
+    frames (replayed from the second on, bar the recorded ones): the
+    tracker's ids equal on every frame and positions within
+    GRAPH_POS_ATOL_M (bit-equality printed), launches as expected; then the
+    per-frame latency, synchronizing calls, device-busy share, device
+    operations and graph launches of both (frames 30-32 of the eager run
+    under the profiler)."""
+    from msckf_mono_tpu_torch.ops import cuda_graph
+
+    n = GRAPH_EAGER_FRAMES
+    imgs_host = imgs[:n].cpu().numpy()
+    vio = _live_interface(cfg, seq)
+    lat, ids, pos, per_frame = [], [], [], []
+    syncs = SyncCounter(torch)
+    lo = LIVE_REPLAY[0]
+    profile = None
+    torch.cuda.synchronize()
+    _zero_counts()
+    with cuda_graph.disabled():
+        for i in range(n):
+            if i == lo:
+                def go():
+                    for j in range(lo, lo + PROFILE_FRAMES):
+                        _live_frame(torch, vio, seq, imgs_host, j)
+                        ids.append(vio.track_handler.cur_ids[0].cpu().numpy().copy())
+                        pos.append(vio.odometry()["p_I_G"])
+                profile = phase_profile(torch, "live-graph-eager-profile", go, live["p50_ms"])
+            if lo <= i < lo + PROFILE_FRAMES:
+                continue
+            _live_frame(torch, vio, seq, imgs_host, i, lat, syncs, per_frame)
+            ids.append(vio.track_handler.cur_ids[0].cpu().numpy().copy())
+            pos.append(vio.odometry()["p_I_G"])
+    launches = _counts()
+    want = live_expected_launches(cfg, n, finish=False)
+    ids, pos = np.asarray(ids), np.asarray(pos)
+    same = np.array_equal(ids, live["_ids"][:n]) and np.array_equal(pos, np.asarray(live["_pos"][:n]))
+    err = float(np.abs(pos - np.asarray(live["_pos"][:n])).max())
+    p50, p99 = _percentile(lat, 50), _percentile(lat, 99)
+    eager_busy = profile["busy_ms"] / p50
+    log(f"[live-graph] {n} frames eager against [live]: ids equal on every frame "
+        f"{np.array_equal(ids, live['_ids'][:n])}, bit-equal {same}, max position difference "
+        f"{err:.3e} m; eager launches {launches} (expected {want})")
+    log(f"[live-graph] image_callback eager / replay: p50 {p50:.2f} / {live['p50_ms']:.2f} ms, p99 "
+        f"{p99:.2f} / {live['p99_ms']:.2f} ms (camera period {CAMERA_PERIOD_MS:.0f} ms); device busy "
+        f"{100 * eager_busy:.1f}% / {100 * live_profile['busy_share']:.1f}%; device ops "
+        f"{profile['ops']:.0f} / {live_profile['ops']:.0f} and graph launches "
+        f"{profile['graph_launches']:.1f} / {live_profile['graph_launches']:.1f} a frame; "
+        f"synchronizing calls {syncs.count / len(lat):.2f} / {live['syncs_per_frame']:.2f} a frame "
+        f"({syncs.summary(len(lat))}); peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB allocated, {torch.cuda.max_memory_reserved() / 2**30:.2f} GiB reserved with the "
+        f"graphs' pools since the image phases")
+    check(np.array_equal(ids, live["_ids"][:n]), "[live-graph] the tracker's ids differ")
+    check(same or err <= GRAPH_POS_ATOL_M, f"[live-graph] positions differ by {err:.3e} m")
+    check(tuple(launches) == want, f"[live-graph] launches {launches}, expected {want}")
+    return dict(frames=n, bit_equal=same, max_pos_diff_m=err,
+                eager=dict(p50=p50, p99=p99, syncs=syncs.count / len(lat), busy_share=eager_busy,
+                           ops=profile["ops"], graph_launches=profile["graph_launches"]),
+                replay=dict(p50=live["p50_ms"], p99=live["p99_ms"], syncs=live["syncs_per_frame"],
+                            steady_syncs_max=live["steady_syncs_max"],
+                            busy_share=live_profile["busy_share"], ops=live_profile["ops"],
+                            graph_launches=live_profile["graph_launches"]),
+                eager_profile=profile, replay_profile=live_profile)
 
 
 def phase_live_replay(torch, cfg, rec):
@@ -1303,13 +1589,16 @@ def run_live_phases(torch, imgs):
         shutil.rmtree(root, ignore_errors=True)
     rec = LaunchRecorder()
     live = phase_live(torch, "live", seq, imgs, T, cfg, recorder=rec)
-    phase_live_profile(torch, seq, imgs, cfg, live["p50_ms"])
+    live_profile = phase_live_profile(torch, seq, imgs, cfg, live["p50_ms"])
+    graph = phase_live_graph(torch, seq, imgs, cfg, live, live_profile)
+    live = {k: v for k, v in live.items() if not k.startswith("_")}
     parity_cfg = dc.replace(cfg, filter=dc.replace(cfg.filter, use_qr_compression=True,
                                                    use_anisotropic_r=True))
     parity = phase_live(torch, "live-parity", seq, imgs, LIVE_PARITY_FRAMES, parity_cfg)
     replay = phase_live_replay(torch, cfg, rec)
-    return {"live": live, "live-cli": cli, "live-parity": parity, "replay": replay,
-            "decoder": decoder}
+    return {"live": live, "live-cli": cli, "live-parity": {k: v for k, v in parity.items()
+                                                          if not k.startswith("_")},
+            "live-graph": graph, "replay": replay, "decoder": decoder}
 
 
 def main(argv=None):
@@ -1323,12 +1612,22 @@ def main(argv=None):
     name, _ = phase_device(torch)
     usage = phase_build()
     per_shape = phase_kernel(torch)
-    launches = phase_main(torch, args.batch, args.frames)
+    launches, main_path = phase_main(torch, args.batch, args.frames)
+    from msckf_mono_tpu_torch.core import filter as msckf_filter
+    from msckf_mono_tpu_torch.ops import cuda_graph
+
+    graph = phase_graph(torch, "graph", msckf_filter.step, (main_path["cfg"],), main_path["make"],
+                        main_path["frames"], main_path)
+    timing = phase_timing(torch, main_path)
+    del main_path
+    cuda_graph.clear_cache()                 # the filter path's graph and its pool
 
     seq, imgs = render_world(serving_config(IMAGE_BATCH), max(IMAGE_FRAMES, INDEP_FRAMES))
     fast_shapes, fast_err, klt_err = phase_image_kernels(torch, imgs)
     shared = phase_image(torch, "image", seq, imgs[:IMAGE_FRAMES], IMAGE_BATCH, False)
+    cuda_graph.clear_cache()
     indep = phase_image(torch, "image-indep", seq, imgs[:INDEP_FRAMES], INDEP_BATCH, True)
+    cuda_graph.clear_cache()
     replay, replay_indep = shared["replay"], indep["replay"]
     live = run_live_phases(torch, imgs[:LIVE_FRAMES])
 
@@ -1387,9 +1686,15 @@ def main(argv=None):
                                                        "bound_by", "max_abs_err", "per_level")},
         "registers": usage["klt_level"],
     }
-    paths = {k: {kk: v for kk, v in r.items() if kk != "replay"}
+    # each kernel's device time a frame inside the replayed step (profiles of 3 frames)
+    profiles = {"filter": graph["replay_profile"], "image": shared["graph"]["replay_profile"],
+                "live": live["live-graph"]["replay_profile"]}
+    for entry, key in ((gamma, "gamma"), (fast, "fast"), (klt, "klt")):
+        entry["in_graph_per_frame"] = {path: prof["kernels"].get(key) for path, prof in profiles.items()}
+    paths = {k: {kk: v for kk, v in r.items() if kk not in ("replay", "graph")}
              for k, r in (("image", shared), ("image-indep", indep))}
-    paths.update({k: live[k] for k in ("live", "live-cli", "live-parity")})
+    paths.update({k: live[k] for k in ("live", "live-cli", "live-parity", "live-graph")})
+    paths.update({"graph": graph, "image-graph": shared["graph"], "timing": timing})
     paths["live-data"] = {"decoder": live["decoder"]}
     print(json.dumps({"kernels": [gamma, fast, klt], "paths": paths}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -6,7 +6,9 @@ seeded init, asl_msckf.cpp:141-159) and asl_msckf_no_ground_truth.cpp
 (standstill self-calibration) in one CLI: images stream through the
 ``TrackHandler`` (FAST and KLT kernels on the card), the filter runs one
 step a frame at B = 1, and the run is scored by ATE/drift. It runs on the
-card unless ``--cpu`` is given.
+card unless ``--cpu`` is given; there a frame's tracker and step replay one
+captured CUDA graph from the second frame on (``interface.LiveFrame``), and
+``--finish`` replays the graphed ``core/filter.finish``.
 
 Usage:
   python -m msckf_mono_tpu_torch.cli.run_euroc --data /path/to/MH_03_medium/mav0 \
@@ -45,14 +47,12 @@ def main(argv=None):
     import torch
 
     from msckf_mono_tpu_torch.core import filter as msckf_filter
-    from msckf_mono_tpu_torch.core.filter import FrameInput
     from msckf_mono_tpu_torch.core.init import ground_truth_init, standstill_init
     from msckf_mono_tpu_torch.core.types import init_filter_state
     from msckf_mono_tpu_torch.data import asl, sync
     from msckf_mono_tpu_torch.eval.ate import ate_rmse, final_drift
     from msckf_mono_tpu_torch.frontend.track_handler import TrackHandler
-    from msckf_mono_tpu_torch.interface import _budget, to_host
-    from msckf_mono_tpu_torch.utils import quat as quat_ops
+    from msckf_mono_tpu_torch.interface import FRAME_OUTPUTS, LiveFrame, _unpack, frame_outputs, to_host
     from msckf_mono_tpu_torch.utils.config import CameraConfig, MsckfConfig
 
     device = torch.device("cpu" if args.cpu else "cuda")
@@ -111,24 +111,8 @@ def main(argv=None):
     )
 
     state = init_filter_state(cfg, imu0, dtype=dtype, device=device)
-    F = cfg.shapes.max_features_per_frame
-    K = cfg.shapes.imu_per_frame
-    q_CI = torch.as_tensor(cfg.camera.q_CI, dtype=dtype, device=device)
-    # The whole IMU stream on the device in one copy: per frame, (omega, acc,
-    # dt) and the state id and time (seconds since the first frame: f32 ULP at
-    # an epoch stamp of ~1.4e9 s is ~128 s; absolute times are rebuilt on the
-    # host in f64 from state_id at export).
-    T = len(frame_ts)
-    host = np.concatenate([packed.omega.reshape(T, -1), packed.acc.reshape(T, -1), packed.dt,
-                           np.arange(1, T + 1)[:, None], ((frame_ts - frame_ts[0]) / 1e9)[:, None]],
-                          axis=1)
-    dev_in = torch.as_tensor(host, device=device)
-    omega_all = dev_in[:, : 3 * K].reshape(T, 1, K, 3)
-    acc_all = dev_in[:, 3 * K: 6 * K].reshape(T, 1, K, 3).to(dtype)
-    dt_all = dev_in[:, 6 * K: 7 * K].reshape(T, 1, K)
-    sid_all = dev_in[:, 7 * K].to(torch.int32)
-    time_all = dev_in[:, 7 * K + 1].to(dtype)
-    valid = torch.ones((1,), dtype=torch.bool, device=device)
+    live = LiveFrame(cfg, th, dtype, device)
+    t_rel = (frame_ts - frame_ts[0]) / 1e9   # the device's clock: seconds since the first frame
 
     est = []
     map_accum = []     # cumulative map_ (msckf.h:50)
@@ -137,43 +121,26 @@ def main(argv=None):
     # threaded decode-ahead: image decode overlaps with the device step
     prefetch = cam.prefetcher(n_threads=4, lookahead=16)
     for i, ts in enumerate(frame_ts):
-        img = torch.as_tensor(prefetch.get(frame_index_offset + i), device=device).to(dtype)
-
-        # this frame's gyro readings (the first n of the block; the padding
-        # carries dt = 0) less the current bias estimate, into the camera
-        # frame, as one op
+        # the frame's IMU block (the first n rows; the padding carries dt = 0)
+        # and image, staged and copied to the device, then the frame: the
+        # tracker and the filter step, a replayed graph from the second frame
         n = int(np.count_nonzero(packed.dt[i] > 0))
-        if n:
-            w = (omega_all[i, 0, :n] - state.imu.b_g).to(dtype)
-            th.add_gyro_reading(quat_ops.rotate(q_CI, w))
-
-        th.set_current_image(img, ts / 1e9)
-        t_uv, t_ids, t_valid = th.tracked_features()
-        n_uv, n_ids, n_valid = th.new_features()
-        tb, nb = _budget(t_uv, t_ids, t_valid, F, dtype), _budget(n_uv, n_ids, n_valid, F, dtype)
-
-        frame = FrameInput(
-            imu_omega=omega_all[i].to(dtype), imu_acc=acc_all[i], imu_dt=dt_all[i].to(dtype),
-            tracked_uv=tb[0], tracked_ids=tb[1], tracked_valid=tb[2],
-            new_uv=nb[0], new_ids=nb[1], new_valid=nb[2],
-            state_id=sid_all[i:i + 1], time=time_all[i:i + 1], frame_valid=valid,
-        )
-        state, _ = msckf_filter.step(state, frame, cfg)
+        state, out = live(state, prefetch.get(frame_index_offset + i), packed.omega[i, :n],
+                          packed.acc[i, :n], packed.dt[i, :n], i + 1, t_rel[i], ts / 1e9)
         # the frame's one device->host copy: the position and the archive
         # buffers (reference msckf.h:49-50; published asl_msckf.cpp:337-352
         # and :405-428)
-        p, m, mp, tm, tp, pm, pid, pt, pq, pp = to_host(
-            [state.imu.p_I_G[0], state.map_mask[0], state.map_pts[0], state.tri_map_mask[0],
-             state.tri_map_pts[0], state.pruned_mask[0], state.pruned_ids[0],
-             state.pruned_time[0], state.pruned_q[0], state.pruned_p[0]])
-        est.append(p)
-        if m.any():
-            map_accum.append(mp[m])
-        if tm.any():
-            map_accum.append(tp[tm])
+        h = dict(zip(FRAME_OUTPUTS, _unpack(out.cpu().numpy(), frame_outputs(state, th))))
+        est.append(h["p_I_G"])
+        if h["map_mask"].any():
+            map_accum.append(h["map_pts"][h["map_mask"]])
+        if h["tri_map_mask"].any():
+            map_accum.append(h["tri_map_pts"][h["tri_map_mask"]])
+        pm = h["pruned_mask"]
         if pm.any():
             pruned_accum.append(np.concatenate([
-                pid[pm, None].astype(np.float64), pt[pm, None], pq[pm], pp[pm]], axis=1))
+                h["pruned_ids"][pm, None].astype(np.float64), h["pruned_time"][pm, None],
+                h["pruned_q"][pm], h["pruned_p"][pm]], axis=1))
         if i % 100 == 0:
             print(f"frame {i}/{len(frame_ts)}", file=sys.stderr)
 

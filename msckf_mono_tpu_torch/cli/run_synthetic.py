@@ -4,8 +4,10 @@
 The offline-runner equivalent of the reference's datasets/asl_msckf.cpp for
 the no-dataset case: generates a synthetic world, runs B filters (perturbed
 inits with ``--perturb``) on one device, and reports ATE statistics and
-throughput. It runs on the card unless ``--cpu`` is given; the JAX
-package's multi-device sharding is not part of this runner.
+throughput. It runs on the card unless ``--cpu`` is given, where the
+fleet's frame step replays one captured CUDA graph a frame
+(``parallel/sharding.batched_run_sequence``); the JAX package's
+multi-device sharding is not part of this runner.
 """
 
 from __future__ import annotations

@@ -4,10 +4,12 @@ The reference's main loop (datasets/asl_msckf.cpp:206-478) drains IMU
 readings then runs augment -> update -> addFeatures -> marginalize ->
 pruneRedundantStates -> pruneEmptyStates per camera frame. Here that frame is
 :func:`step`, a function of tensors with a leading filter-batch axis and no
-host synchronization (no ``.item()``, no branch on data), and
-:func:`run_sequence` is a Python loop over the frames. :func:`finish` is the
-end-of-sequence force-residualization of every remaining track
-(msckf.h:765-807), a fixed number of passes.
+host synchronization (no ``.item()``, no branch on data). :func:`run_sequence`
+is ``lax.scan`` over the frames and :func:`finish` the end-of-sequence
+force-residualization of every remaining track (msckf.h:765-807), a fixed
+number of passes; on the card both replay a captured CUDA graph
+(``ops/cuda_graph``), one replay a frame, and run eagerly under
+``cuda_graph.disabled()``.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ from msckf_mono_tpu_torch.core import augment, prune, tracks, update
 from msckf_mono_tpu_torch.core import propagate as propagate_mod
 from msckf_mono_tpu_torch.core.types import FilterState, StagedTracks, _Replace, tree_map, tree_where
 from msckf_mono_tpu_torch.core.window import gather_rows, stable_order
+from msckf_mono_tpu_torch.ops import cuda_graph
 from msckf_mono_tpu_torch.utils.config import MsckfConfig
 
 
@@ -150,18 +153,17 @@ def frame_at(frames: FrameInput, t: int) -> FrameInput:
 
 
 def run_sequence(state: FilterState, frames: FrameInput, config: MsckfConfig):
-    """Run :func:`step` over a (T, B, ...) stack of FrameInputs.
+    """Run :func:`step` over a (T, B, ...) stack of FrameInputs
+    (``lax.scan``, ``msckf_mono_tpu/core/filter.py:170``).
 
-    The device is the state's. Returns (final_state, FrameOutput with (T, B, ...)
-    fields).
+    The device is the state's. One captured step is replayed a frame: the
+    graph writes the new state into its own input buffers, each frame is
+    copied into the frame buffers before its replay, and each FrameOutput
+    into a (T, B, ...) stack after it. Returns (final_state, FrameOutput with
+    (T, B, ...) fields).
     """
     frames = tree_map(lambda x: x.to(state.P.device), frames)
-    outs = []
-    for t in range(frames.time.shape[0]):
-        state, out = step(state, frame_at(frames, t), config)
-        outs.append(out)
-    stacked = tree_map(lambda *xs: torch.stack(xs), outs[0], *outs[1:])
-    return state, stacked
+    return cuda_graph.scan(step, state, frames, (config,))
 
 
 def _stage_pass(state: FilterState, config: MsckfConfig):
@@ -190,6 +192,12 @@ def _stage_pass(state: FilterState, config: MsckfConfig):
 
 
 def finish(state: FilterState, config: MsckfConfig, collect_map: bool = False):
+    """:func:`_finish` from a captured graph on the card (the jitted
+    finish of ``msckf_mono_tpu/interface.py:315``)."""
+    return cuda_graph.jit(_finish, (config, collect_map))(state)
+
+
+def _finish(state: FilterState, config: MsckfConfig, collect_map: bool = False):
     """End-of-sequence: residualize EVERY remaining eligible track
     (msckf.h:765-807 force-residualizes all of them).
 

@@ -3,8 +3,11 @@
 The reference's per-frame host loop (ros_interface.cpp:48-120: drain IMU ->
 propagate -> KLT -> detect -> augment -> update -> marginalize -> prune) as
 one function :func:`step` over a (FilterState, FrontendState) carry, and
-:func:`run_images`, a Python loop over the frames, as
-``core/filter.run_sequence`` is. The gyro-warp prediction uses each filter's
+:func:`run_images`, ``lax.scan`` over the frames as
+``core/filter.run_sequence`` is: on the card one captured CUDA graph of
+:func:`step` replayed a frame (``ops/cuda_graph``), whose carry (the filter
+state and the front-end state with its pyramid) stays in the graph's
+buffers. The gyro-warp prediction uses each filter's
 current gyro-bias estimate (ros_interface.cpp:95-99).
 
 Every tensor carries the filter-batch axis B; images are (Bi, H, W) a frame
@@ -24,6 +27,7 @@ from msckf_mono_tpu_torch.core.filter import FrameInput
 from msckf_mono_tpu_torch.core.types import _Replace, tree_map
 from msckf_mono_tpu_torch.frontend import functional
 from msckf_mono_tpu_torch.frontend.functional import FrontendConfig, FrontendState
+from msckf_mono_tpu_torch.ops import cuda_graph
 from msckf_mono_tpu_torch.utils import quat
 from msckf_mono_tpu_torch.utils.config import MsckfConfig
 
@@ -109,14 +113,12 @@ def step(carry: tuple, frame: ImageFrameInput, config: MsckfConfig, fcfg: Fronte
 def run_images(state, fstate: FrontendState, frames: ImageFrameInput, config: MsckfConfig,
                fcfg: FrontendConfig):
     """Run :func:`step` over a (T, ...) stack of image frames, on the state's
-    device. Returns (state, fstate, FrameOutput with (T, B, ...) fields)."""
+    device (``msckf_mono_tpu/core/pipeline.py:113``). Each frame's (Bi, H, W)
+    image is copied into the graph's (Bi, H, W) buffer, never broadcast.
+    Returns (state, fstate, FrameOutput with (T, B, ...) fields)."""
     frames = tree_map(lambda x: x.to(state.P.device), frames)
-    carry, outs = (state, fstate), []
-    for t in range(frames.time.shape[0]):
-        carry, out = step(carry, tree_map(lambda x: x[t], frames), config, fcfg)
-        outs.append(out)
-    stacked = tree_map(lambda *xs: torch.stack(xs), outs[0], *outs[1:])
-    return carry[0], carry[1], stacked
+    (state, fstate), stacked = cuda_graph.scan(step, (state, fstate), frames, (config, fcfg))
+    return state, fstate, stacked
 
 
 def batched_run_images(config: MsckfConfig, fcfg: FrontendConfig):

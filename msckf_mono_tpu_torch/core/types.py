@@ -157,10 +157,11 @@ def _leaves(tree, prefix=""):
 def filter_state_to_numpy(state: FilterState) -> dict:
     """The state as a dict of numpy arrays keyed by field path ("imu.q_IG", "P", ...).
 
-    Arrays keep the leading batch axis. The JAX package's state flattens to
+    Arrays keep the leading batch axis and are copies (a graphed run
+    updates its state tensors in place). The JAX package's state flattens to
     the same keys, so both sides can start from one state.
     """
-    return {k: v.detach().cpu().numpy() for k, v in _leaves(state)}
+    return {k: v.detach().cpu().numpy().copy() for k, v in _leaves(state)}
 
 
 def filter_state_from_numpy(arrays: dict, device="cuda") -> FilterState:

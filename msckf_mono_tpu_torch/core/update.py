@@ -147,9 +147,14 @@ def track_projected_rows(obs, obs_mask, p_f_G, window, g, config: MsckfConfig,
 
 
 def _psd_solve(S, b):
-    """Cholesky solve for the S = (·)P(·)ᵀ + σ²I systems."""
+    """Cholesky solve for the S = (·)P(·)ᵀ + σ²I systems, as two triangular
+    solves (batched cuBLAS on the card). ``torch.cholesky_solve`` of a batch
+    takes MAGMA's batched path on the card, which allocates with cudaMalloc,
+    synchronizes the device and fails an assertion inside a CUDA graph
+    capture."""
     L, _ = torch.linalg.cholesky_ex(S)
-    return torch.cholesky_solve(b, L)
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
 
 
 def gating_test_all(H_all, r_all, P, dof, sigma2, config: MsckfConfig):

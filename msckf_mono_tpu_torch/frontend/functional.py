@@ -10,7 +10,8 @@ per frame, then once per new feature, corner_detector.cpp:407-411).
 Every tensor carries a leading filter-batch axis B. Images and the pyramid
 carried in the state are ``(Bi, H, W)`` with Bi = 1 for a camera shared by
 the batch (its pyramid, FAST, Shi-Tomasi and per-cell reduction run once a
-frame) or Bi = B for independent streams. The step has no host syncs.
+frame) or Bi = B for independent streams. The step has no host syncs;
+:func:`make_jitted_step` replays it from a captured CUDA graph on the card.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from msckf_mono_tpu_torch.core.types import _Replace
 from msckf_mono_tpu_torch.frontend import detect, klt, undistort
+from msckf_mono_tpu_torch.ops import cuda_graph
 from msckf_mono_tpu_torch.utils.config import MsckfConfig
 
 
@@ -222,13 +224,20 @@ def _grid_dedup(pts, ids, valid, H, W, n_rows, n_cols, out_n):
     )
 
 
+def make_jitted_step(config: MsckfConfig, fcfg: FrontendConfig):
+    """``step(state, img, dR) -> (state, FrontendOutput)``: :func:`frontend_step`
+    replayed from a captured CUDA graph on the card
+    (``msckf_mono_tpu/frontend/functional.py:230``), with fresh outputs."""
+    return cuda_graph.jit(frontend_step, (config, fcfg))
+
+
 def frontend_state_to_numpy(state: FrontendState) -> dict:
     """The state as {field path: numpy array}, with the keys the JAX package's
     state flattens to ("pyramid[0]", ..., "pts", "ids", ...)."""
-    out = {f"pyramid[{i}]": p.detach().cpu().numpy() for i, p in enumerate(state.pyramid)}
+    out = {f"pyramid[{i}]": p.detach().cpu().numpy().copy() for i, p in enumerate(state.pyramid)}
     for f in dataclasses.fields(state):
         if f.name != "pyramid":
-            out[f.name] = getattr(state, f.name).detach().cpu().numpy()
+            out[f.name] = getattr(state, f.name).detach().cpu().numpy().copy()
     return out
 
 

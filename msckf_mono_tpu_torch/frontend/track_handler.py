@@ -17,10 +17,19 @@ in unoccupied grid cells.
 
 Arrays are one filter's, batch-first (B = Bi = 1): points (1, F, 2), ids and
 flags (1, F), images (1, H, W). The handler keeps everything on its device
-and synchronizes with the host nowhere: the gyro sum, the feature-id counter
-and the "anything to track" test are device tensors (KLT runs on an all-
-invalid set rather than branch on it, which gives the same outputs).
-Only time stamps and the gyro reading count are host scalars.
+and synchronizes with the host nowhere: the gyro sum and count, the
+feature-id counter and the "anything to track" test are device tensors (KLT
+runs on an all-invalid set rather than branch on it, which gives the same
+outputs). Only the time stamps are host scalars; the frame interval can come
+in as a device tensor instead.
+
+The tensors one frame hands to the next are :meth:`TrackHandler.carry`
+(:data:`CARRY`); :meth:`TrackHandler.load` rebinds them. The live interface
+captures a frame's device work (``_ingest`` -> :meth:`tracked_features` ->
+:meth:`new_features`) in a CUDA graph over that carry once the handler
+holds an image and its pyramid (:meth:`TrackHandler.graphable`): from the
+second image on, and never with RANSAC on, whose samples come from a CPU
+``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -82,7 +91,7 @@ class TrackHandler:
         self.new_pts, self.new_ids, self.new_valid = self._empty()
 
         self._gyro_sum = torch.zeros((3,), dtype=torch.float64, device=self.device)
-        self.n_gyro = 0
+        self._gyro_n = torch.zeros((), dtype=torch.float64, device=self.device)
         self.dR = torch.eye(3, dtype=dtype, device=self.device)
 
     def _empty(self):
@@ -100,26 +109,62 @@ class TrackHandler:
     def next_feature_id(self, value: int):
         self._next_id = torch.full((1,), int(value), dtype=torch.int32, device=self.device)
 
+    @property
+    def n_gyro(self) -> int:
+        """Gyro readings since the last frame (reads the device)."""
+        return int(self._gyro_n)
+
+    # ---- the frame-to-frame carry ----
+
+    def carry(self) -> dict:
+        """The tensors one frame hands to the next, by name (:data:`CARRY`).
+        ``prev_img`` is only an output (each frame sets it from ``cur_img``),
+        so before the second image it enters as ``cur_img``."""
+        out = {k: getattr(self, k) for k in CARRY}
+        if out["prev_img"] is None:
+            out["prev_img"] = out["cur_img"]
+        return out
+
+    def load(self, carry: dict):
+        """Rebind the handler's tensors to ``carry`` (a :meth:`carry` dict;
+        a ``prev_img`` that is ``cur_img`` itself stands for none)."""
+        for k in CARRY:
+            setattr(self, k, carry[k])
+        if carry["prev_img"] is carry["cur_img"]:
+            self.prev_img = None
+        self._prev_pyr = None
+
+    def graphable(self) -> bool:
+        """Whether the next frame's device work can be one captured graph:
+        the handler holds an image and its pyramid, and RANSAC is off."""
+        return self.cur_img is not None and self._cur_pyr is not None and not self.use_ransac
+
     # ---- gyro warp (corner_detector.cpp:215-276) ----
 
-    def add_gyro_reading(self, gyro):
+    def add_gyro_reading(self, gyro, mask=None):
         """One camera-frame gyro reading (3,), or n of them (n, 3), from the
-        host or from the handler's device."""
+        host or from the handler's device; ``mask`` (n,) on the device keeps
+        the readings where it is set (a padded block)."""
         g = torch.as_tensor(gyro, device=self.device).to(torch.float64).reshape(-1, 3)
-        self._gyro_sum = self._gyro_sum + torch.sum(g, dim=0)
-        self.n_gyro += g.shape[0]
+        if mask is None:
+            self._gyro_sum = self._gyro_sum + torch.sum(g, dim=0)
+            self._gyro_n = self._gyro_n + g.shape[0]
+        else:
+            m = mask.to(torch.float64)
+            self._gyro_sum = self._gyro_sum + torch.sum(g * m[:, None], dim=0)
+            self._gyro_n = self._gyro_n + torch.sum(m)
 
-    def _integrate_gyro(self):
-        dt = self.cur_time - self.prev_time
-        if self.n_gyro == 0:
-            self.dR = torch.eye(3, dtype=self.dtype, device=self.device)
-            return
+    def _integrate_gyro(self, dt=None):
+        """The mean rotation over the frame interval ``dt`` (default: the
+        host's stamps; a device tensor in a captured frame). With no readings
+        the sum is zero and the rotation the identity."""
+        dt = self.cur_time - self.prev_time if dt is None else dt
         # For camera angular velocity ω in the camera frame, points move by
         # R_c2<-c1 = exp(-[ω·dt]x). (The reference feeds the gyro through
         # q_CI.inverse() and uses +ω — asl_msckf.cpp:235,
         # corner_detector.cpp:220-244 — which mis-frames the prediction; KLT's
         # large window hides it there. This is the correct sign and frame.)
-        rvec = -self._gyro_sum / self.n_gyro * dt
+        rvec = -self._gyro_sum / torch.clamp_min(self._gyro_n, 1.0) * dt
         angle = torch.linalg.vector_norm(rvec)
         small = angle < 1e-12
         axis = rvec / torch.where(small, torch.ones_like(angle), angle)
@@ -130,14 +175,19 @@ class TrackHandler:
         q = torch.where(small, identity, q)
         self.dR = quat.to_rotmat(q.to(self.dtype))
         self._gyro_sum = torch.zeros_like(self._gyro_sum)
-        self.n_gyro = 0
+        self._gyro_n = torch.zeros_like(self._gyro_n)
 
     # ---- frame ingestion (corner_detector.cpp:278-318) ----
 
     def set_current_image(self, img, time: float):
         """img: (H, W) or (1, H, W), a host array or a tensor."""
-        self.prev_img = self.cur_img
         self.prev_time = self.cur_time
+        self.cur_time = float(time)
+        self._ingest(img)
+
+    def _ingest(self, img):
+        """The device part of :meth:`set_current_image`."""
+        self.prev_img = self.cur_img
         self._prev_pyr, self._cur_pyr = self._cur_pyr, None
 
         # carry over current + new features, then keep the first of each grid
@@ -155,7 +205,6 @@ class TrackHandler:
         self.prev_pts, self.prev_ids, self.prev_valid = pts, ids, valid
 
         self.cur_img = img
-        self.cur_time = float(time)
         self.cur_pts, self.cur_ids, self.cur_valid = self._empty()
         self.new_pts, self.new_ids, self.new_valid = self._empty()
 
@@ -164,10 +213,13 @@ class TrackHandler:
 
     # ---- tracking (corner_detector.cpp:320-394) ----
 
-    def tracked_features(self):
-        """Returns (uv_normalized (1, F, 2), ids (1, F), valid (1, F))."""
-        self._integrate_gyro()
+    def tracked_features(self, dt=None):
+        """Returns (uv_normalized (1, F, 2), ids (1, F), valid (1, F)).
+        ``dt``: the frame interval, if not the host stamps' difference."""
+        self._integrate_gyro(dt)
         if self.prev_img is None:
+            # the first image: nothing to track; its pyramid serves the next frame
+            self._cur_pyr = self._pyramid(self.cur_img, self._cur_pyr)
             return self._empty()
 
         pred = _predict_homography(self.prev_pts, self.dR, self.K, self.K_inv)
@@ -237,13 +289,13 @@ class TrackHandler:
 
     def state_to_numpy(self) -> dict:
         """Arrays (batch axis kept), images and host scalars as a dict."""
-        out = {k: getattr(self, k).detach().cpu().numpy() for k in self._ARRAYS}
+        out = {k: getattr(self, k).detach().cpu().numpy().copy() for k in self._ARRAYS}
         for k in ("prev_img", "cur_img"):
             img = getattr(self, k)
-            out[k] = None if img is None else img.detach().cpu().numpy()
+            out[k] = None if img is None else img.detach().cpu().numpy().copy()
         out.update(prev_time=self.prev_time, cur_time=self.cur_time,
                    next_feature_id=self.next_feature_id, n_gyro=self.n_gyro,
-                   gyro_accum=self._gyro_sum.cpu().numpy())
+                   gyro_accum=self._gyro_sum.cpu().numpy().copy())
         return out
 
     def state_from_numpy(self, arrays: dict):
@@ -262,9 +314,15 @@ class TrackHandler:
         self.prev_time = float(arrays["prev_time"])
         self.cur_time = float(arrays["cur_time"])
         self.next_feature_id = int(arrays["next_feature_id"])
-        self.n_gyro = int(arrays["n_gyro"])
+        self._gyro_n = torch.tensor(float(arrays["n_gyro"]), dtype=torch.float64,
+                                    device=self.device)
         self._gyro_sum = torch.as_tensor(np.asarray(arrays["gyro_accum"], np.float64),
                                          device=self.device)
+
+
+CARRY = ("prev_img", "cur_img", "_cur_pyr", "prev_pts", "prev_ids", "prev_valid", "cur_pts",
+         "cur_ids", "cur_valid", "new_pts", "new_ids", "new_valid", "_next_id", "_gyro_sum",
+         "_gyro_n", "dR")
 
 
 def _occupancy(pts, valid, H, W, n_rows, n_cols):

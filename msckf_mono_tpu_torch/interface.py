@@ -16,13 +16,30 @@ aligns -g with the mean accel, b_a = q·g + mean accel. The live node skips
 redundant-state pruning (ros_interface.cpp:111-116); pass a config with
 ``filter.use_prune_redundant=False`` for that.
 
-One frame is one filter (B = 1) on ``device``. A frame's host inputs (image,
-IMU blocks, gyro readings) go to the device before its work is queued, and
-the frame synchronizes with the host at most once after it: one device→host
-copy brings back the odometry, the archive buffers and the tracker's
-features for the visualizer together (:func:`to_host`), and only when the
-archives or the visualizer are kept. ``host_copies`` counts every
-device→host copy the interface makes.
+One frame is one filter (B = 1) on ``device``. A frame's host inputs (the
+image and one float64 vector with the IMU block, its gyro mask, the state
+id, the time and the frame interval) are written into pinned staging
+buffers and copied to the device without blocking. From the second image on,
+the frame's device work (the gyro readings into the tracker, the tracker,
+the filter step, and its outputs packed for the copy back) replays one
+captured CUDA graph (``ops/cuda_graph.StepGraph``; JAX jits the step at
+``msckf_mono_tpu/interface.py:101``); the first frame, frames after
+:meth:`TrackHandler.clear_tracks` or a state restore, frames with RANSAC on,
+and every frame under ``cuda_graph.disabled()`` run the same function
+eagerly. The rare frame with more readings than one IMU block propagates
+the earlier blocks eagerly first. :meth:`VioInterface.finish` replays the
+graphed ``core/filter.finish``.
+
+The filter state (``state``) and the tracker's tensors then live in the
+graph's buffers, which the next frame updates in place: copy what must
+outlive a frame (``.cpu()`` on the card, ``.clone()`` or ``.numpy().copy()``
+on the CPU).
+
+The frame synchronizes with the host at most once, after its work: one
+device→host copy brings back the odometry, the archive buffers and the
+tracker's features for the visualizer together, only when the archives or
+the visualizer are kept. ``host_copies`` counts every device→host copy the
+interface makes.
 """
 
 from __future__ import annotations
@@ -41,6 +58,7 @@ from msckf_mono_tpu_torch.core.window import stable_order
 from msckf_mono_tpu_torch.frontend.functional import _take
 from msckf_mono_tpu_torch.frontend.track_handler import TrackHandler
 from msckf_mono_tpu_torch.frontend.visualize import TrackVisualizer
+from msckf_mono_tpu_torch.ops import cuda_graph
 from msckf_mono_tpu_torch.utils import quat as quat_ops
 from msckf_mono_tpu_torch.utils.config import MsckfConfig
 
@@ -63,9 +81,18 @@ def to_host(tensors):
     buffer is copied, and the host arrays are cut from it with their own
     dtypes and shapes.
     """
-    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
+    return _unpack(_pack(tensors).cpu().numpy(), tensors)
+
+
+def _pack(tensors):
+    """The tensors as one float64 vector on their device."""
+    return torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
+
+
+def _unpack(flat, like):
+    """Host arrays cut from ``flat`` with the dtypes and shapes of ``like``."""
     out, at = [], 0
-    for t in tensors:
+    for t in like:
         n = t.numel()
         dt = np.bool_ if t.dtype == torch.bool else torch.empty((), dtype=t.dtype).numpy().dtype
         out.append(flat[at:at + n].astype(dt).reshape(tuple(t.shape)))
@@ -77,6 +104,7 @@ _ODOMETRY = ("p_I_G", "q_IG", "v_I_G", "b_g", "b_a")
 _ARCHIVE = ("map_mask", "map_pts", "tri_map_mask", "tri_map_pts", "pruned_mask", "pruned_ids",
             "pruned_time", "pruned_q", "pruned_p")
 _FEATURES = ("cur_pts", "cur_ids", "cur_valid", "new_pts", "new_ids", "new_valid")
+FRAME_OUTPUTS = _ODOMETRY + _ARCHIVE + _FEATURES
 
 
 class VioInterface:
@@ -124,6 +152,7 @@ class VioInterface:
         self.collect_archives = bool(collect_archives)
         self.host_copies = 0
         self._host = None          # this frame's host copy of odometry, archives, features
+        self._live_frame = LiveFrame(self.config, self.track_handler, dtype, self.device)
         self._last_image = None
         self._last_image_time = None
         # Device-side times are SECONDS SINCE THE FIRST IMAGE: float32 ULP at
@@ -167,59 +196,37 @@ class VioInterface:
         K = cfg.shapes.imu_per_frame
         drained = self._drain_imu(time)
         self.frame_count += 1
-        # every host input of the frame goes to the device first, in two copies
-        blocks, gyro, state_id, t_rel = _pack_frame(
-            drained, K, self.frame_count, time - self._time_origin, self.dtype, self.device)
-        img = torch.as_tensor(np.asarray(image), device=self.device)
-
         th = self.track_handler
-        if gyro is not None:
-            # each reading less the bias estimate, into the camera frame, as one op
-            w = (gyro - self.state.imu.b_g).to(self.dtype)
-            th.add_gyro_reading(quat_ops.rotate(self._q_CI, w))
 
-        # all-but-last block: pure propagation (the rare > K readings case)
-        for omega, acc, dts in blocks[:-1]:
-            frame = _imu_only_frame(omega, acc, dts, cfg, self.dtype)
-            self.state = msckf_filter.propagate_block(self.state, frame, cfg)
-        omega, acc, dts = blocks[-1]
+        # all-but-last block (the rare > K readings case): their gyro
+        # readings into the tracker and pure propagation, eagerly
+        split = max(0, -(-len(drained) // K) - 1) * K
+        if split:
+            blocks, gyro, _, _ = _pack_frame(drained[:split], K, 0, 0.0, self.dtype, self.device)
+            th.add_gyro_reading(quat_ops.rotate(self._q_CI, (gyro - self.state.imu.b_g).to(self.dtype)))
+            for omega, acc, dts in blocks:
+                frame = _imu_only_frame(omega, acc, dts, cfg, self.dtype)
+                self.state = msckf_filter.propagate_block(self.state, frame, cfg)
 
-        th.set_current_image(img, time)
-        t_uv, t_ids, t_valid = th.tracked_features()
-        n_uv, n_ids, n_valid = th.new_features()
-        F = cfg.shapes.max_features_per_frame
-        tb = _budget(t_uv, t_ids, t_valid, F, self.dtype)
-        nb = _budget(n_uv, n_ids, n_valid, F, self.dtype)
-
-        frame = FrameInput(
-            imu_omega=omega, imu_acc=acc, imu_dt=dts,
-            tracked_uv=tb[0], tracked_ids=tb[1], tracked_valid=tb[2],
-            new_uv=nb[0], new_ids=nb[1], new_valid=nb[2],
-            state_id=state_id, time=t_rel,
-            frame_valid=torch.ones((1,), dtype=torch.bool, device=self.device),
-        )
-        self.state, _ = msckf_filter.step(self.state, frame, cfg)
+        image = np.asarray(image)
+        readings = drained[split:]
+        self.state, packed = self._live_frame(
+            self.state, image, [r.omega for r in readings], [r.acc for r in readings],
+            [r.dt for r in readings], self.frame_count, time - self._time_origin, time)
         self._last_image_time = time
         self._host = None
         if self.collect_archives or self.visualizer is not None:
-            self._pull_frame()
+            self.host_copies += 1
+            self._pull_frame(packed.cpu().numpy())
         if self.visualizer is not None:
-            self._last_image = np.asarray(image)
+            self._last_image = image
         return True
 
-    def _pull_frame(self):
-        """The frame's one device→host copy, then the host-side bookkeeping."""
-        s, th = self.state, self.track_handler
-        names = list(_ODOMETRY)
-        tensors = [getattr(s.imu, k)[0] for k in _ODOMETRY]
-        if self.collect_archives:
-            names += _ARCHIVE
-            tensors += [getattr(s, k)[0] for k in _ARCHIVE]
-        if self.visualizer is not None:
-            names += _FEATURES
-            tensors += [getattr(th, k)[0] for k in _FEATURES]
-        self._host = dict(zip(names, self._copy(tensors)))
-        h = self._host
+    def _pull_frame(self, flat):
+        """The frame's host copy (``flat``, the packed outputs of
+        :meth:`LiveFrame.frame`), then the host-side bookkeeping."""
+        h = self._host = dict(zip(FRAME_OUTPUTS,
+                                  _unpack(flat, frame_outputs(self.state, self.track_handler))))
         if self.collect_archives:
             self._accumulate_map_and_pruned(h)
         if self.visualizer is not None:
@@ -363,6 +370,111 @@ class VioInterface:
         self._time_origin = arrays["time_origin"]
         self.imu_calibrated = bool(arrays["imu_calibrated"])
         self._host = None
+
+
+class LiveFrame:
+    """One filter's frame on (filter state, tracker) from host inputs: the
+    frame's work of :class:`VioInterface` and ``cli/run_euroc``.
+
+    A call stages the host inputs (pinned on the card) and runs
+    :meth:`frame` on the device: from a captured CUDA graph, one for each
+    image shape and dtype, when the tracker is :meth:`TrackHandler.graphable`
+    and ``cuda_graph`` is enabled, else eagerly. It returns the new state
+    (the graph's buffers, updated in place by the next call) and the frame's
+    outputs packed for one copy back (:func:`frame_outputs` order).
+    """
+
+    def __init__(self, config: MsckfConfig, track_handler: TrackHandler, dtype=torch.float32,
+                 device="cuda"):
+        self.config, self.track_handler, self.dtype = config, track_handler, dtype
+        self.device = torch.device(device)
+        self._q_CI = torch.as_tensor(config.camera.q_CI, dtype=dtype, device=self.device)
+        self.graphs = {}        # by image shape and dtype
+        self._staging = None    # (key, image, vector) host buffers
+        self._staged = None     # event after the last frame that read them
+
+    def __call__(self, state, image, omega, acc, dt, state_id: int, t_rel: float, time: float):
+        """``image`` (H, W) host array; ``omega``, ``acc`` (n, 3) and ``dt``
+        (n,) the n <= K readings of the frame's IMU block; ``t_rel`` the time
+        since the first image (the device's clock), ``time`` the image stamp."""
+        th = self.track_handler
+        frame_dt = float(time) - th.cur_time
+        th.prev_time, th.cur_time = th.cur_time, float(time)
+        inputs = self._stage(image, omega, acc, dt, state_id, t_rel, frame_dt)
+        carry = (state, th.carry())
+        if cuda_graph.enabled() and th.graphable():
+            key = (tuple(image.shape), image.dtype)
+            graph = self.graphs.get(key)
+            if graph is None:
+                graph = self.graphs[key] = cuda_graph.StepGraph(self.frame, carry, inputs)
+            (state, th_carry), packed = graph(carry, *inputs)
+        else:
+            inputs = tuple(x.to(self.device, non_blocking=True, copy=True) for x in inputs)
+            (state, th_carry), packed = self.frame(carry, *inputs)
+        th.load(th_carry)
+        if self._staged is not None:
+            self._staged.record()
+        return state, packed
+
+    def _stage(self, image, omega, acc, dt, state_id, t_rel, frame_dt):
+        """The host inputs in the staging buffers: the image, and one float64
+        vector of the IMU block (K rows of omega, acc, dt), its reading mask
+        (K), the state id, the time since the first image and the frame
+        interval. A buffer is refilled only after the frame that read it."""
+        K = self.config.shapes.imu_per_frame
+        key = (tuple(image.shape), image.dtype)
+        if self._staging is None or self._staging[0] != key:
+            pin = self.device.type == "cuda"
+            self._staging = (key, torch.empty(image.shape, dtype=torch.from_numpy(image[:0]).dtype,
+                                              pin_memory=pin),
+                             torch.empty((8 * K + 3,), dtype=torch.float64, pin_memory=pin))
+            self._staged = torch.cuda.Event() if pin else None
+        elif self._staged is not None and not self._staged.query():
+            self._staged.synchronize()
+        _, img, vec = self._staging
+        img.numpy()[...] = image
+        v = vec.numpy()
+        v[:] = 0.0
+        n = len(dt)
+        blk = v[: 7 * K].reshape(K, 7)
+        if n:
+            blk[:n, 0:3], blk[:n, 3:6], blk[:n, 6] = omega, acc, dt
+        v[7 * K: 7 * K + n] = 1.0
+        v[8 * K:] = state_id, t_rel, frame_dt
+        return img, vec
+
+    def frame(self, carry, image, vec):
+        """The frame's device work on (filter state, tracker carry) and the
+        staged inputs: the block's gyro readings (less the bias estimate, in
+        the camera frame) into the tracker, the tracker, the filter step.
+        Returns the new carry and the packed :func:`frame_outputs`."""
+        cfg, dtype, th = self.config, self.dtype, self.track_handler
+        K, F = cfg.shapes.imu_per_frame, cfg.shapes.max_features_per_frame
+        state, th_carry = carry
+        th.load(th_carry)
+        blk = vec[: 7 * K].reshape(K, 7)
+        th.add_gyro_reading(quat_ops.rotate(self._q_CI, (blk[:, 0:3] - state.imu.b_g).to(dtype)),
+                            vec[7 * K: 8 * K] > 0)
+        th._ingest(image)
+        tb = _budget(*th.tracked_features(vec[8 * K + 2]), F, dtype)
+        nb = _budget(*th.new_features(), F, dtype)
+        b = blk.to(dtype)[None]
+        frame = FrameInput(
+            imu_omega=b[..., 0:3], imu_acc=b[..., 3:6], imu_dt=b[..., 6],
+            tracked_uv=tb[0], tracked_ids=tb[1], tracked_valid=tb[2],
+            new_uv=nb[0], new_ids=nb[1], new_valid=nb[2],
+            state_id=vec[8 * K: 8 * K + 1].to(torch.int32), time=vec[8 * K + 1: 8 * K + 2].to(dtype),
+            frame_valid=torch.ones((1,), dtype=torch.bool, device=vec.device),
+        )
+        state, _ = msckf_filter.step(state, frame, cfg)
+        return (state, th.carry()), _pack(frame_outputs(state, th))
+
+
+def frame_outputs(state, th):
+    """What a frame brings back, in ``_ODOMETRY``, ``_ARCHIVE``, ``_FEATURES``
+    order (:data:`FRAME_OUTPUTS`): one filter's tensors without the batch axis."""
+    return ([getattr(state.imu, k)[0] for k in _ODOMETRY] + [getattr(state, k)[0] for k in _ARCHIVE]
+            + [getattr(th, k)[0] for k in _FEATURES])
 
 
 def _budget(uv, ids, valid, F, dtype):

@@ -31,7 +31,7 @@ from msckf_mono_tpu_torch.data import synthetic as tsyn
 from msckf_mono_tpu_torch.parallel import montecarlo as tmc
 from msckf_mono_tpu_torch.parallel import sharding as tsharding
 from msckf_mono_tpu_torch.frontend.track_handler import TrackHandler
-from msckf_mono_tpu_torch.interface import VioInterface
+from msckf_mono_tpu_torch.interface import LiveFrame, VioInterface
 
 from tests import _torch_port as tp
 
@@ -169,6 +169,6 @@ def test_padded_frame_leaves_state_untouched(small_f64):
 
 @pytest.mark.parametrize("fn", [ttypes.init_imu_state, ttypes.init_filter_state, tinit.ground_truth_init,
                                 tinit.standstill_init, tmc.make_fleet, tsyn.to_frame_inputs,
-                                tmc.make_grid_fleet, VioInterface, TrackHandler])
+                                tmc.make_grid_fleet, VioInterface, TrackHandler, LiveFrame])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"

@@ -290,7 +290,7 @@ def test_vio_interface_matches_jax(live_world, jax_live):
     _gt_init(vio, seq)
     odo, ids = [], []
     _drive(vio, seq, imgs, N_LIVE_FRAMES,
-           lambda v: (odo.append(v.odometry()["p_I_G"]), ids.append(v.track_handler.cur_ids[0].numpy())))
+           lambda v: (odo.append(v.odometry()["p_I_G"]), ids.append(v.track_handler.cur_ids[0].numpy().copy())))
     # one device->host copy a frame: odometry, archives and features together
     assert vio.host_copies == N_LIVE_FRAMES
     np.testing.assert_allclose(np.asarray(odo), jax_live["odo"], rtol=0, atol=1e-6)

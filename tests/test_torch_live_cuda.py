@@ -102,7 +102,7 @@ def _run(device, cfg, seq, imgs):
             vio.imu_callback(seq.imu_omega[i, k], seq.imu_acc[i, k],
                              float(seq.time[i]) - (K - 1 - k) * 0.005, dt=float(seq.imu_dt[i, k]))
         vio.image_callback(imgs[i], float(seq.time[i]))
-        ids.append(vio.track_handler.cur_ids[0].cpu().numpy())
+        ids.append(vio.track_handler.cur_ids[0].cpu().numpy().copy())
         pos.append(vio.odometry()["p_I_G"])
     return np.asarray(ids), np.asarray(pos)
 
