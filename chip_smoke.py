@@ -38,6 +38,23 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    [timing]: eval/timing.stage_timing at this configuration and batch on
    bench.py --stages' inputs: each stage's device time (4 chained calls in
    one replayed graph), flops and bytes counted by hand;
+   [sharded]: the filter path through parallel/sharding.make_sharded_run
+   on the main run's fleet (drawn once, then split) and frames, in three
+   setups: (a) make_mesh() in a one-rank NCCL group, bit-equal to [main]
+   with its metrics equal to [main]'s fleet_metrics (means within 1e-6
+   relative); (b) two shards of B/2 on cuda:0, bit-equal to [main] or every
+   counter equal and positions within 2e-2 m; (c) python -m
+   msckf_mono_tpu_torch.parallel.two_host_sim: two processes on the card
+   joined by gloo, one shard each, whose ``ok`` must hold and whose totals
+   must equal (b)'s; each with its frame time, rate, gamma launches (2 a
+   frame per shard), peak memory, capture time and all-reduce time;
+   [checkpoint]: the main fleet run half-way, saved (parallel/checkpoint),
+   restored into a fresh template on the card and resumed through the
+   replayed graph: P, p_I_G and every counter bit-equal to [main]; file
+   size, save and restore seconds;
+   [golden]: eval/golden.compare_to_golden() on the CPU (f64, the golden's
+   definition, rtol = atol = 1e-9), then the same spec in f32 on the card
+   through the gamma kernel, with its largest position gap to the golden;
 5. [kernel] FAST and KLT: the FAST-10+NMS kernel equal to its plain version
    bit for bit on random and rendered images at (1, 480, 752), (64, 480, 752)
    and (1, 201, 300), at thresholds 0, 20 and 20.3, and on a view 4 bytes
@@ -62,6 +79,14 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    in phase 5), counting the live LK iterations
    and the pixels read for the KLT bound, and timing the KLT kernel on those
    inputs;
+   [image-precision]: the same path with image_precision="default" (TF32
+   for the pyramid's and Shi-Tomasi's products): rate and ATE beside
+   [image]'s and both tiers timed in turn (highest, default, default,
+   highest), exact launches, frame 30's largest gap against "highest" on
+   each pyramid level and the Shi-Tomasi map, the share of features whose
+   KLT good flags agree, the products' device time (TF32 kernels in a
+   profile of frames 30-32, and the products alone); then [main]'s first 10
+   frames rerun, bit-equal to before (TF32 stayed out of the filter);
 8. [image-indep], [replay-indep]: 64 independent streams (per-stream
    brightness offset (b mod 7) * 0.5, as bench.py) over 40 frames
    (batched_run_images), with ATE(filter 0) and launch counts; then the
@@ -103,7 +128,6 @@ and prints no result. It imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import subprocess
 import sys
@@ -384,17 +408,9 @@ def phase_kernel(torch):
 
 def serving_config(batch):
     """bench.py:123-164's serving configuration at this batch size."""
-    from msckf_mono_tpu_torch.utils.config import MsckfConfig
+    from msckf_mono_tpu_torch.utils.config import serving_config as config
 
-    cfg = MsckfConfig()
-    pchunk = 48 if batch <= 1024 else {2048: 24, 4096: 12}.get(batch, 6)
-    return dataclasses.replace(
-        cfg,
-        filter=dataclasses.replace(cfg.filter, fused_updates=True, gating_precision="high"),
-        shapes=dataclasses.replace(cfg.shapes, staged_chunk=max(2, 8192 // batch),
-                                   max_staged=8, prune_obs_cap=2, marg_obs_cap=22,
-                                   prune_chunk=pchunk),
-    )
+    return config(batch)
 
 
 def phase_main(torch, batch, frames):
@@ -737,8 +753,10 @@ def _zero_counts():
     psd_cuda.gamma_psd.launches = 0
 
 
-def phase_image(torch, tag, seq, imgs, B, independent):
-    """The image-in-the-loop path at bench.py's --images configuration."""
+def image_run(torch, tag, seq, imgs, B, independent, fcfg):
+    """The image-in-the-loop path at bench.py's --images configuration with
+    the front-end ``fcfg``: capture, then the timed run and its checks.
+    Returns (result, run, make, frames, cfg)."""
     from msckf_mono_tpu_torch.core import pipeline
     from msckf_mono_tpu_torch.core.init import ground_truth_init
     from msckf_mono_tpu_torch.core.types import tree_map
@@ -747,7 +765,6 @@ def phase_image(torch, tag, seq, imgs, B, independent):
     from msckf_mono_tpu_torch.parallel import montecarlo, sharding
 
     cfg = serving_config(B)
-    fcfg = image_frontend_config()
     T, H, W = imgs.shape
     frames = image_frames(seq, imgs, B, independent)
     imu = ground_truth_init(p_I_G=[5.0, 0.0, 0.0], q_IG=[1, 0, 0, 0],
@@ -785,7 +802,8 @@ def phase_image(torch, tag, seq, imgs, B, independent):
     reserved = torch.cuda.max_memory_reserved() / 2**30
     ref = BENCH_IMAGES_ATE["independent" if independent else "shared"]
     log(f"[{tag}] {B} filters x {T} frames, {'independent streams' if independent else 'one shared camera'}, "
-        f"{H}x{W}, f32 on cuda, one replayed graph a frame: {seconds:.2f} s, "
+        f"{H}x{W}, f32 on cuda (image products at {fcfg.image_precision!r}), one replayed graph "
+        f"a frame: {seconds:.2f} s, "
         f"{B * T / seconds:.1f} image-frame-steps/s, peak memory {peak:.2f} GiB allocated, "
         f"{reserved:.2f} GiB reserved with the graph's pool (capture and 2 warm-up frames "
         f"{capture_s:.2f} s)")
@@ -802,6 +820,19 @@ def phase_image(torch, tag, seq, imgs, B, independent):
     result = dict(B=B, T=T, seconds=seconds, steps_per_s=B * T / seconds, ate0=ate0,
                   peak_gib=peak, reserved_gib=reserved, capture_s=capture_s,
                   launches=dict(fast=fast_n, klt=klt_n, gamma=gamma_n), **m)
+    return result, run, make, frames, cfg
+
+
+def phase_image(torch, tag, seq, imgs, B, independent):
+    """The image-in-the-loop path at bench.py's --images configuration."""
+    from msckf_mono_tpu_torch.core import pipeline
+    from msckf_mono_tpu_torch.core.types import tree_map
+
+    fcfg = image_frontend_config()
+    result, run, make, frames, cfg = image_run(torch, tag, seq, imgs, B, independent, fcfg)
+    T = imgs.shape[0]
+    seconds = result["seconds"]
+    peak, reserved, capture_s = result["peak_gib"], result["reserved_gib"], result["capture_s"]
 
     # Mid-sequence frames from the path's own state after frame lo.
     lo = min(30, T // 2)
@@ -1601,6 +1632,345 @@ def run_live_phases(torch, imgs):
             "live-graph": graph, "replay": replay, "decoder": decoder}
 
 
+SHARDED_POS_ATOL = 2e-2        # tests/test_sharding.py:65
+GOLDEN_F32_FINDING_M = 1e-2    # an f32 gap to the golden above this is a finding (ROADMAP Queue 3)
+MAIN_RECHECK_FRAMES = 10
+COUNTERS = ("total_residualized", "total_row_overflow", "total_staged_overflow")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _metrics_match(got, want):
+    """Totals and the maximum exactly, the means within 1e-6 relative (the
+    mesh's means are f64 sums over counts, the unsharded ones ``torch.mean``)."""
+    exact = all(int(got[k]) == int(want[k]) for k in COUNTERS) and \
+        float(got["max_pos_cov_trace"]) == float(want["max_pos_cov_trace"])
+    means = all(abs(float(got[k]) - float(want[k])) <= 1e-6 * abs(float(want[k]))
+                for k in ("mean_pos_cov_trace", "mean_cam_count"))
+    return exact and means
+
+
+def _sharded_setup(torch, tag, mesh, main):
+    """One mesh setup of the filter path at the main run's fleet and frames:
+    capture on 2 frames, the timed run, the all-reduce's wall time alone."""
+    from msckf_mono_tpu_torch.core.types import tree_map
+    from msckf_mono_tpu_torch.ops import cuda_graph
+    from msckf_mono_tpu_torch.parallel import sharding
+
+    cfg, frames, make = main["cfg"], main["frames"], main["make"]
+    T, B = frames.time.shape[:2]
+    cuda_graph.clear_cache()
+    torch.cuda.empty_cache()
+    run = sharding.make_sharded_run(cfg, mesh)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run(sharding.shard_batch(make(), mesh), tree_map(lambda x: x[:2], frames))
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    states = sharding.shard_batch(make(), mesh)     # the fleet drawn once, then split
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    final, outs, metrics = run(states, frames)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    gamma_n = _counts()[2]
+    t0 = time.perf_counter()
+    sharding.fleet_metrics(final, mesh)
+    torch.cuda.synchronize()
+    allreduce_ms = 1e3 * (time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec = dict(shards=len(final.shards), frame_ms=1e3 * seconds / T, seconds=seconds,
+               frame_steps_per_s=B * T / seconds, gamma_launches=gamma_n, peak_gib=peak,
+               capture_s=capture_s, allreduce_ms=allreduce_ms,
+               **{k: float(v) for k, v in metrics.items()})
+    log(f"[sharded] ({tag}) {len(final.shards)} shard(s) of {B // mesh.size} on "
+        f"{[str(d) for d in mesh.devices]}, world {mesh.world_size}: {rec['frame_ms']:.2f} ms a "
+        f"frame, {rec['frame_steps_per_s']:.1f} frame-steps/s, gamma launches {gamma_n}, peak "
+        f"memory {peak:.2f} GiB, capture and 2 warm-up frames {capture_s:.2f} s, all-reduce "
+        f"{allreduce_ms:.3f} ms; residualized {int(metrics['total_residualized'])}")
+    check(gamma_n == 2 * T * len(final.shards),
+          f"[sharded] ({tag}) {gamma_n} gamma launches, expected {2 * T * len(final.shards)}")
+    return rec, final, outs, metrics
+
+
+def phase_sharded(torch, main):
+    """The filter path through make_sharded_run in three setups on one card:
+    (a) make_mesh() in a one-rank NCCL group, (b) two shards on cuda:0,
+    (c) two processes on the card joined by gloo (parallel/two_host_sim)."""
+    import os
+    import torch.distributed as dist
+
+    from msckf_mono_tpu_torch.parallel import sharding
+
+    final, outs = main["final"], main["outs"]
+    want = sharding.fleet_metrics(final)
+    T, B = main["frames"].time.shape[:2]
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{_free_port()}",
+                            world_size=1, rank=0)
+    try:
+        mesh = sharding.make_mesh()
+        check(mesh.group is not None and mesh.size == 1, f"[sharded] (a) mesh of {mesh.size}")
+        a, a_final, a_outs, a_metrics = _sharded_setup(torch, "a", mesh, main)
+    finally:
+        dist.destroy_process_group()
+    a_equal = (_tree_equal(torch, a_final.gather(), final)
+               and _tree_equal(torch, a_outs.gather(), outs))
+    log(f"[sharded] (a) bit-equal to [main]: {a_equal}; metrics equal to [main]'s fleet_metrics: "
+        f"{_metrics_match(a_metrics, want)}")
+    check(a_equal, "[sharded] (a) differs from [main]")
+    check(_metrics_match(a_metrics, want), "[sharded] (a) metrics differ from [main]'s")
+    del a_final, a_outs
+
+    b, b_final, b_outs, b_metrics = _sharded_setup(
+        torch, "b", sharding.make_mesh(["cuda:0", "cuda:0"]), main)
+    b_equal = (_tree_equal(torch, b_final.gather(), final)
+               and _tree_equal(torch, b_outs.gather(), outs))
+    b_gap = float((b_outs.gather().p_I_G - outs.p_I_G).abs().max())
+    b["bit_equal"], b["max_pos_gap_m"] = b_equal, b_gap
+    log(f"[sharded] (b) bit-equal to [main]: {b_equal}; max position gap {b_gap:.3e} m; counters "
+        + ", ".join(f"{k} {int(b_metrics[k])} ([main] {int(want[k])})" for k in COUNTERS))
+    check(b_equal or (all(int(b_metrics[k]) == int(want[k]) for k in COUNTERS)
+                      and b_gap <= SHARDED_POS_ATOL),
+          f"[sharded] (b) counters differ or positions {b_gap:.3e} m > {SHARDED_POS_ATOL} m")
+    del b_final, b_outs
+
+    from msckf_mono_tpu_torch.ops import cuda_graph
+
+    cuda_graph.clear_cache()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-u", "-m", "msckf_mono_tpu_torch.parallel.two_host_sim", "--batch",
+         str(B), "--frames", str(T), "--timeout", "600"],
+        capture_output=True, text=True, timeout=900,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    check(proc.returncode == 0 and proc.stdout.strip(),
+          f"[sharded] (c) two_host_sim exit {proc.returncode}: {proc.stderr[-3000:]}")
+    c = json.loads(proc.stdout.strip().splitlines()[-1])
+    for w in c["workers"]:
+        log(f"[sharded] (c) rank {w['rank']} ({w['backend']}, shard {w['shards']} on "
+            f"{w['devices']}): {w['frame_ms']:.2f} ms a frame, {w['frame_steps_per_s']:.1f} "
+            f"frame-steps/s, gamma launches {w['gamma_launches']}, peak memory "
+            f"{w.get('peak_gib', float('nan')):.2f} GiB, capture {w['capture_s']:.2f} s, "
+            f"all-reduce "
+            f"{1e3 * w['allreduce_s']:.3f} ms, checkpoint save {w['save_s']:.3f} s, restore "
+            f"{w['restore_s']:.3f} s")
+    r = c["reference"]
+    log(f"[sharded] (c) one process, the same {len(r['shards'])} shards: {r['frame_ms']:.2f} ms a "
+        f"frame; checks "
+        f"{c['checks']}; launcher wall {wall:.1f} s")
+    check(c["ok"], f"[sharded] (c) not ok: {c['checks']}")
+    check(all(w["gamma_launches"] == 2 * T for w in c["workers"]),
+          f"[sharded] (c) gamma launches {[w['gamma_launches'] for w in c['workers']]}")
+    check(all(int(c["metrics"][k]) == int(b_metrics[k]) for k in COUNTERS),
+          f"[sharded] (c) totals {c['metrics']} differ from (b)'s")
+    return {"a": dict(a, bit_equal=a_equal), "b": b,
+            "c": dict(checks=c["checks"], workers=c["workers"], reference=r, wall_s=wall)}
+
+
+def phase_checkpoint(torch, main):
+    """The main fleet run half-way, saved, restored into a fresh template on
+    the card and resumed through the replayed graph: bit-equal to [main]."""
+    import os
+    import tempfile
+
+    from msckf_mono_tpu_torch.core.types import tree_map
+    from msckf_mono_tpu_torch.ops import cuda_graph
+    from msckf_mono_tpu_torch.parallel import checkpoint, sharding
+
+    cfg, frames, make, final = main["cfg"], main["frames"], main["make"], main["final"]
+    T = frames.time.shape[0]
+    half = T // 2
+    cuda_graph.clear_cache()
+    run = sharding.batched_run_sequence(cfg)
+    _zero_counts()
+    mid, _ = run(make(), tree_map(lambda x: x[:half], frames))
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        path = checkpoint.save(os.path.join(root, "ckpt"), mid, step=half)
+        save_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+        template = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restored = checkpoint.restore(path, template)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+    check(restored.P.device == final.P.device and _tree_equal(torch, restored, mid),
+          "[checkpoint] the restored state differs from the saved one")
+    resumed, _ = run(restored, tree_map(lambda x: x[half:], frames))
+    torch.cuda.synchronize()
+    gamma_n = _counts()[2]
+    same = dict(P=torch.equal(resumed.P, final.P),
+                p_I_G=torch.equal(resumed.imu.p_I_G, final.imu.p_I_G),
+                diag=_tree_equal(torch, resumed.diag, final.diag),
+                everything=_tree_equal(torch, resumed, final))
+    log(f"[checkpoint] {final.P.shape[0]} filters: {half} frames, save {size / 2**20:.1f} MiB in "
+        f"{save_s:.3f} s, restore onto the card {restore_s:.3f} s, resume {T - half} frames; "
+        f"bit-equal to the uninterrupted run: {same}; gamma launches {gamma_n}")
+    check(same["P"] and same["p_I_G"] and same["diag"],
+          f"[checkpoint] resumed run differs from the uninterrupted one: {same}")
+    check(gamma_n == 2 * T, f"[checkpoint] {gamma_n} gamma launches, expected {2 * T}")
+    return dict(bytes=size, save_s=save_s, restore_s=restore_s, equal=same,
+                gamma_launches=gamma_n)
+
+
+def phase_golden(torch):
+    """compare_to_golden() on the CPU (the golden's definition, f64), then
+    the same spec in f32 on the card through the gamma kernel."""
+    from msckf_mono_tpu_torch.core import filter as msckf_filter
+    from msckf_mono_tpu_torch.core.init import ground_truth_init
+    from msckf_mono_tpu_torch.core.types import init_filter_state
+    from msckf_mono_tpu_torch.data import synthetic
+    from msckf_mono_tpu_torch.eval import golden
+    from msckf_mono_tpu_torch.parallel.montecarlo import broadcast_frames
+    from msckf_mono_tpu_torch.utils.config import MsckfConfig
+
+    t0 = time.perf_counter()
+    errs = golden.compare_to_golden()
+    cpu_s = time.perf_counter() - t0
+    log(f"[golden] compare_to_golden() on the CPU (f64, rtol = atol = 1e-9): passed in "
+        f"{cpu_s:.1f} s; max gaps " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+
+    gold = np.load(golden.DEFAULT_PATH)
+    cfg = MsckfConfig()
+    seq = synthetic.generate(cfg, **golden.GOLDEN_SPEC)
+    imu = ground_truth_init(p_I_G=[5.0, 0.0, 0.0], q_IG=[1, 0, 0, 0],
+                            v_I_G=[0.0, 5.0 * 0.35, 0.2 * 1.4], b_g=seq.b_g, b_a=seq.b_a,
+                            dtype=torch.float32, device="cuda")
+    frames = broadcast_frames(synthetic.to_frame_inputs(seq, torch.float32, device="cuda"), 1)
+    _zero_counts()
+    final, outs = msckf_filter.run_sequence(init_filter_state(cfg, imu, device="cuda"), frames, cfg)
+    gamma_n = _counts()[2]
+    p = outs.p_I_G[:, 0].double().cpu().numpy()
+    gap = float(np.abs(p - gold["p"]).max())
+    res = int(final.num_residualized[0])
+    log(f"[golden] the same spec in f32 on the card: max position gap to the golden {gap:.4e} m "
+        f"({'above' if gap > GOLDEN_F32_FINDING_M else 'within'} {GOLDEN_F32_FINDING_M} m), "
+        f"residualized {res} (golden {int(gold['num_residualized'])}), gamma launches {gamma_n}")
+    check(np.all(np.isfinite(p)), "[golden] f32 run not finite")
+    check(gamma_n > 0, "[golden] the f32 run made no gamma kernel launches")
+    return dict(cpu_max_gaps=errs, cpu_s=cpu_s, f32_max_pos_gap_m=gap, f32_residualized=res,
+                golden_residualized=int(gold["num_residualized"]), gamma_launches=gamma_n)
+
+
+def phase_image_precision(torch, seq, imgs, shared, main10):
+    """The shared-camera image path at image_precision="default" (TF32 for
+    the pyramid and Shi-Tomasi products) beside [image]'s "highest"; frame
+    30's products and KLT flags in both tiers; then [main]'s first frames
+    again, which must not have moved."""
+    import dataclasses as dc
+
+    from msckf_mono_tpu_torch.core import pipeline
+    from msckf_mono_tpu_torch.core.types import tree_map
+    from msckf_mono_tpu_torch.eval import profile as port_profile
+    from msckf_mono_tpu_torch.frontend import detect, functional, klt
+    from msckf_mono_tpu_torch.ops import cuda_graph
+    from msckf_mono_tpu_torch.parallel import sharding
+
+    fcfg = dc.replace(image_frontend_config(), image_precision="default")
+    T = imgs.shape[0]
+    result, run, make, frames, cfg = image_run(torch, "image-precision", seq, imgs, IMAGE_BATCH,
+                                               False, fcfg)
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "[image-precision] TF32 left on")
+    log(f"[image-precision] against [image] ('highest'): {result['steps_per_s']:.1f} against "
+        f"{shared['steps_per_s']:.1f} image-frame-steps/s, {1e3 * result['seconds'] / T:.2f} "
+        f"against {1e3 * shared['seconds'] / T:.2f} ms a frame; ATE(filter 0) "
+        f"{result['ate0']:.4f} against {shared['ate0']:.4f} m")
+
+    # both tiers in turn in this call (highest, default, default, highest), each a full timed
+    # run from a fresh fleet: the frame times compared where the card and its neighbours are
+    # the same
+    tiers = {"highest": pipeline.batched_run_images_shared(cfg, image_frontend_config()),
+             "default": run}
+    tiers["highest"](*make(), tree_map(lambda x: x[:2], frames))       # its capture
+    turns = {"highest": [], "default": []}
+    for tier in ("highest", "default", "default", "highest"):
+        states = make()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tiers[tier](*states, frames)
+        torch.cuda.synchronize()
+        turns[tier].append(1e3 * (time.perf_counter() - t0) / T)
+    del tiers
+    log(f"[image-precision] in turn, ms a frame: 'highest' {turns['highest'][0]:.2f}, 'default' "
+        f"{turns['default'][0]:.2f}, 'default' {turns['default'][1]:.2f}, 'highest' "
+        f"{turns['highest'][1]:.2f}")
+
+    # frame lo's products in both tiers
+    lo = min(30, T // 2)
+    img = imgs[lo:lo + 1]
+    gaps = [float((a - b).abs().max()) for a, b in
+            zip(klt.build_pyramid(img, fcfg.max_level, precision="default"),
+                klt.build_pyramid(img, fcfg.max_level))]
+    st_h = detect.shi_tomasi_score(img)
+    st_gap = float((detect.shi_tomasi_score(img, precision="default") - st_h).abs().max())
+    st_max = float(st_h.abs().max())
+    # the front-end's tracked flags of frame lo in both tiers from one state, this path's after
+    # frame lo - 1, each tier tracking from its own pyramid of frame lo - 1 with the same gyro
+    # rotation
+    mid, fmid, _ = run(*make(), tree_map(lambda x: x[:lo], frames))
+    frame = tree_map(lambda x: x[lo], frames)
+    dR = pipeline._gyro_dR(frame, mid.imu.b_g, pipeline._q_CI(cfg, torch.float32, "cuda"),
+                           torch.float32)
+    tracked = {}
+    with cuda_graph.disabled():
+        for fc in (image_frontend_config(), fcfg):
+            f0 = fmid.replace(pyramid=klt.build_pyramid(imgs[lo - 1:lo], fc.max_level,
+                                                        precision=fc.image_precision))
+            _, feats = functional.frontend_step(f0, img, dR, cfg, fc)
+            tracked[fc.image_precision] = feats.tracked_valid
+    live = fmid.valid & fmid.has_prev[:, None]
+    agree = float((tracked["highest"] == tracked["default"])[live].float().mean())
+    log(f"[image-precision] frame {lo}, 'default' against 'highest': pyramid max gaps by level "
+        + ", ".join(f"{g:.4g}" for g in gaps) + f" (intensity 0..255); Shi-Tomasi max gap "
+        f"{st_gap:.4g} of a largest response {st_max:.4g}; KLT good flags agree on "
+        f"{100 * agree:.3f}% of {int(live.sum())} tracked features")
+
+    # device time of the image products, in the step (profile) and alone
+    prof_frames = tree_map(lambda x: x[lo:lo + PROFILE_FRAMES], frames)
+    profile = phase_profile(torch, "image-precision-profile", lambda: run(mid, fmid, prof_frames),
+                            1e3 * result["seconds"] / T)
+    rows = [a for a in port_profile.trace.last.key_averages()
+            if a.device_type == torch.autograd.DeviceType.CUDA]
+    tf32_ms = sum(a.self_device_time_total for a in rows
+                  if "tf32" in a.key.lower()) / 1e3 / PROFILE_FRAMES
+
+    def products(tier):
+        return (klt.build_pyramid(img, fcfg.max_level, precision=tier),
+                detect.shi_tomasi_score(img, precision=tier))
+
+    alone = {tier: _graph_ms(torch, lambda t=tier: products(t)) for tier in ("highest", "default")}
+    log(f"[image-precision] device time of the image products: TF32 kernels in the step "
+        f"{tf32_ms:.4f} ms a frame; pyramid + Shi-Tomasi alone (a graph of 20) 'highest' "
+        f"{alone['highest']:.4f} ms, 'default' {alone['default']:.4f} ms")
+    check(torch.backends.cuda.matmul.allow_tf32 is False, "[image-precision] TF32 left on")
+    del mid, fmid
+
+    # [main]'s first frames again, in this process, after the TF32 captures
+    cuda_graph.clear_cache()
+    n = MAIN_RECHECK_FRAMES
+    _, outs = sharding.batched_run_sequence(main10["cfg"])(main10["make"](), main10["frames"])
+    same = _tree_equal(torch, outs, main10["outs"])
+    log(f"[image-precision] [main]'s first {n} frames rerun after it: bit-equal {same}")
+    check(same, "[image-precision] the filter path moved after the TF32 image run")
+    return dict(result, turns_ms=turns, pyramid_gaps=gaps, st_gap=st_gap, st_max=st_max,
+                klt_flag_agree=agree,
+                klt_features=int(live.sum()), tf32_step_ms=tf32_ms, products_alone_ms=alone,
+                profile=profile, main_recheck_equal=same)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--batch", type=int, default=1024)
@@ -1619,12 +1989,24 @@ def main(argv=None):
     graph = phase_graph(torch, "graph", msckf_filter.step, (main_path["cfg"],), main_path["make"],
                         main_path["frames"], main_path)
     timing = phase_timing(torch, main_path)
+    sharded = phase_sharded(torch, main_path)
+    ckpt = phase_checkpoint(torch, main_path)
+    from msckf_mono_tpu_torch.core.types import tree_map
+
+    first = lambda x: x[:MAIN_RECHECK_FRAMES]
+    main10 = dict(cfg=main_path["cfg"], make=main_path["make"],
+                  frames=tree_map(first, main_path["frames"]),
+                  outs=tree_map(lambda x: first(x).clone(), main_path["outs"]))
     del main_path
     cuda_graph.clear_cache()                 # the filter path's graph and its pool
+    golden = phase_golden(torch)
+    cuda_graph.clear_cache()
 
     seq, imgs = render_world(serving_config(IMAGE_BATCH), max(IMAGE_FRAMES, INDEP_FRAMES))
     fast_shapes, fast_err, klt_err = phase_image_kernels(torch, imgs)
     shared = phase_image(torch, "image", seq, imgs[:IMAGE_FRAMES], IMAGE_BATCH, False)
+    cuda_graph.clear_cache()
+    precision = phase_image_precision(torch, seq, imgs[:IMAGE_FRAMES], shared, main10)
     cuda_graph.clear_cache()
     indep = phase_image(torch, "image-indep", seq, imgs[:INDEP_FRAMES], INDEP_BATCH, True)
     cuda_graph.clear_cache()
@@ -1632,8 +2014,13 @@ def main(argv=None):
     live = run_live_phases(torch, imgs[:LIVE_FRAMES])
 
     by_path = {k: {"image": shared["launches"][k], "image-indep": indep["launches"][k],
+                   "image-precision": precision["launches"][k],
                    **{path: live[path]["launches"][k] for path in ("live", "live-cli", "live-parity")}}
                for k in ("fast", "klt", "gamma")}
+    by_path["gamma"].update({
+        "sharded-a": sharded["a"]["gamma_launches"], "sharded-b": sharded["b"]["gamma_launches"],
+        "sharded-c": [w["gamma_launches"] for w in sharded["c"]["workers"]],
+        "checkpoint": ckpt["gamma_launches"], "golden-f32": golden["gamma_launches"]})
     # One filter-path frame step launches gamma once at each of its two shapes.
     main_shapes = per_shape[:2]
     gamma = {
@@ -1694,7 +2081,9 @@ def main(argv=None):
     paths = {k: {kk: v for kk, v in r.items() if kk not in ("replay", "graph")}
              for k, r in (("image", shared), ("image-indep", indep))}
     paths.update({k: live[k] for k in ("live", "live-cli", "live-parity", "live-graph")})
-    paths.update({"graph": graph, "image-graph": shared["graph"], "timing": timing})
+    paths.update({"graph": graph, "image-graph": shared["graph"], "timing": timing,
+                  "sharded": sharded, "checkpoint": ckpt, "golden": golden,
+                  "image-precision": {k: v for k, v in precision.items() if k != "profile"}})
     paths["live-data"] = {"decoder": live["decoder"]}
     print(json.dumps({"kernels": [gamma, fast, klt], "paths": paths}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

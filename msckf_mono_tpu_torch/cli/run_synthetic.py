@@ -3,11 +3,12 @@
 
 The offline-runner equivalent of the reference's datasets/asl_msckf.cpp for
 the no-dataset case: generates a synthetic world, runs B filters (perturbed
-inits with ``--perturb``) on one device, and reports ATE statistics and
-throughput. It runs on the card unless ``--cpu`` is given, where the
-fleet's frame step replays one captured CUDA graph a frame
-(``parallel/sharding.batched_run_sequence``); the JAX package's
-multi-device sharding is not part of this runner.
+inits with ``--perturb``) sharded over every visible card
+(``parallel/sharding.make_mesh``, ``make_sharded_run``; under
+``torch.distributed`` over the process group too), and reports ATE
+statistics, throughput and the fleet's metrics. It runs on the card unless
+``--cpu`` is given (a one-device CPU mesh); each shard's frame step replays
+one captured CUDA graph a frame.
 """
 
 from __future__ import annotations
@@ -57,18 +58,20 @@ def main(argv=None):
     states = montecarlo.make_fleet(cfg, imu, args.batch, torch.Generator().manual_seed(args.seed),
                                    dtype=dtype, device=device, **sigmas)
     batch_frames = montecarlo.broadcast_frames(frames, args.batch)
-    run = sharding.batched_run_sequence(cfg)
+
+    mesh = sharding.make_mesh(["cpu"] if args.cpu else None)
+    run = sharding.make_sharded_run(cfg, mesh)
+    states = sharding.shard_batch(states, mesh)
 
     if device.type == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    final, outs = run(states, batch_frames)
-    metrics = sharding.fleet_metrics(final)
-    est = outs.p_I_G.cpu().numpy()  # (T, B, 3)
+    final, outs, metrics = run(states, batch_frames)
+    est = outs.gather("cpu").p_I_G.numpy()  # (T, B, 3): this process's filters
     wall = time.perf_counter() - t0
 
-    ates = [ate_rmse(est[:, b], seq.gt_p) for b in range(min(args.batch, 64))]
-    drifts = [final_drift(est[:, b], seq.gt_p) for b in range(min(args.batch, 64))]
+    ates = [ate_rmse(est[:, b], seq.gt_p) for b in range(min(est.shape[1], 64))]
+    drifts = [final_drift(est[:, b], seq.gt_p) for b in range(min(est.shape[1], 64))]
 
     report = {
         "batch": args.batch,

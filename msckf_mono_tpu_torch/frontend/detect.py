@@ -21,6 +21,7 @@ import functools
 import numpy as np
 import torch
 
+from msckf_mono_tpu_torch.frontend.klt import image_precision
 from msckf_mono_tpu_torch.ops import fast_cuda
 from msckf_mono_tpu_torch.ops.fast_cuda import FAST_OFFSETS, fast_score_10, nonmax_3x3
 
@@ -59,20 +60,21 @@ def _grad_box_operators(H: int, W: int, half: int, dtype, device):
                  for a in _grad_box_matrices(H, W, half))
 
 
-def shi_tomasi_score(img, halfbox: int = 15):
+def shi_tomasi_score(img, halfbox: int = 15, precision: str = "highest"):
     """Min-eigenvalue response per pixel (reference corner_detector.cpp:38-79).
 
     img: (Bi, H, W). Gradients and box sums are banded matrix products in the
-    image's dtype; on the card they run in full f32 (TF32 is off).
+    image's dtype at ``precision`` (``klt.image_precision``: "default" is
+    TF32 on the card, full f32 on the CPU).
     """
     H, W = img.shape[-2:]
     Gy, Gx, Bv, Bh = _grad_box_operators(H, W, halfbox, img.dtype, img.device)
-    dx = img @ Gx.T                # I(x+1) - I(x-1)
-    dy = Gy @ img
-
     box_area = (2 * halfbox) ** 2
-    Z = torch.stack([dx * dx, dy * dy, dx * dy], dim=-3)    # (Bi, 3, H, W)
-    S = (Bv @ Z @ Bh.T) / (2.0 * box_area)
+    with image_precision(precision, img):
+        dx = img @ Gx.T                # I(x+1) - I(x-1)
+        dy = Gy @ img
+        Z = torch.stack([dx * dx, dy * dy, dx * dy], dim=-3)    # (Bi, 3, H, W)
+        S = (Bv @ Z @ Bh.T) / (2.0 * box_area)
     dxx, dyy, dxy = S[..., 0, :, :], S[..., 1, :, :], S[..., 2, :, :]
 
     tr = dxx + dyy
@@ -97,11 +99,13 @@ def detect_features(
     n_cols: int = 10,
     fast_threshold: float = 20.0,
     detection_threshold: float = 40.0,
+    st_precision: str = "highest",
 ):
     """At most one new corner per unoccupied grid cell.
 
     img: (Bi, H, W); occupied_cells: (B, C) bool with C = n_rows * n_cols and
-    Bi in {1, B}. Returns (xy (B, C, 2), score (B, C), valid (B, C)).
+    Bi in {1, B}; ``st_precision``: the Shi-Tomasi products' tier. Returns
+    (xy (B, C, 2), score (B, C), valid (B, C)).
     """
     H, W = img.shape[-2:]
     grid_h = H // n_rows + 1
@@ -109,7 +113,7 @@ def detect_features(
     n_cells = n_rows * n_cols
 
     nms = fast_cuda.fast_nms_score(img, fast_threshold) > 0
-    st = shi_tomasi_score(img)
+    st = shi_tomasi_score(img, precision=st_precision)
     # Occupancy is per cell, so it is applied after the tile reduction and
     # the (Bi, H, W) score map stays image-only.
     scores = torch.where(nms, st, torch.full_like(st, -1.0))

@@ -42,9 +42,11 @@ class FrontendConfig:
     fast_threshold: float = 20.0
     detection_threshold: float = 40.0
     max_flow_px: float = 25.0
-    # Precision tier of the image-domain products (pyramid, Shi-Tomasi). Both
-    # tiers run full f32 in the port (TF32 is off); a TF32/bf16 tier for
-    # "default" is future work, to be judged by the image path's ATE.
+    # Precision tier of the image-domain products (pyramid, Shi-Tomasi):
+    # "highest" is full f32 (the parity default); "default" is TF32 for those
+    # products on the card, as JAX's default precision is on a GPU (full f32
+    # on the CPU), the tier bench.py serves the image path with
+    # (klt.image_precision). The rest of the step stays full f32.
     image_precision: str = "highest"
 
 
@@ -141,7 +143,7 @@ def frontend_step(
     K, K_inv = _camera_arrays(config, dtype, dev)
 
     img = img.to(dtype)
-    cur_pyr = klt.build_pyramid(img, fcfg.max_level)
+    cur_pyr = klt.build_pyramid(img, fcfg.max_level, precision=fcfg.image_precision)
 
     # ---- track (corner_detector.cpp:320-394) ----
     Hm = K @ dR.to(dtype) @ K_inv                                           # (B, 3, 3)
@@ -172,6 +174,7 @@ def frontend_step(
     xy, _score, det_valid = detect.detect_features(
         img, occupied, fcfg.n_grid_rows, fcfg.n_grid_cols,
         fcfg.fast_threshold, fcfg.detection_threshold,
+        st_precision=fcfg.image_precision,
     )
     order = torch.argsort((~det_valid).to(torch.uint8), dim=1, stable=True)[:, :F]
     new_valid = torch.gather(det_valid, 1, order)

@@ -18,6 +18,7 @@ kernel for CUDA tensors, :func:`ops.klt_cuda.track_level_plain` for CPU ones.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 
 import numpy as np
@@ -51,18 +52,43 @@ def _down_operators(H: int, W: int, dtype, device):
     return tuple(torch.as_tensor(a, dtype=dtype, device=device) for a in _down_matrices(H, W))
 
 
-def _pyr_down(imgs):
+@contextlib.contextmanager
+def image_precision(precision: str, x: torch.Tensor):
+    """The matrix-product tier of the image-domain products (the pyramid
+    and Shi-Tomasi), ``FrontendConfig.image_precision``, as JAX gives
+    ``Precision`` on a GPU and a CPU: ``"highest"`` is full f32;
+    ``"default"`` is TF32 for the products inside this context on CUDA
+    tensors, and full f32 on the CPU. The package keeps TF32 off everywhere
+    else (``msckf_mono_tpu_torch/__init__.py``): the switch is in force only
+    while these products are dispatched (in a graph's warm-up and capture
+    too, which is when cuBLAS's math mode is fixed) and restored after."""
+    if precision not in ("highest", "default"):
+        raise ValueError(f"image_precision {precision!r}: expected 'highest' or 'default'")
+    if precision == "highest" or not x.is_cuda:
+        yield
+        return
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def _pyr_down(imgs, precision: str = "highest"):
     """(..., H, W) -> (..., ceil(H/2), ceil(W/2)): blur and 2x subsample
-    (cv2 pyrDown semantics), in the images' dtype (full f32 on the card)."""
+    (cv2 pyrDown semantics), in the images' dtype, the two banded products
+    at ``precision`` (:func:`image_precision`)."""
     H, W = imgs.shape[-2:]
     Av, Ah = _down_operators(H, W, imgs.dtype, imgs.device)
-    return Av @ (imgs @ Ah.T)
+    with image_precision(precision, imgs):
+        return Av @ (imgs @ Ah.T)
 
 
-def build_pyramid(img, levels: int):
+def build_pyramid(img, levels: int, precision: str = "highest"):
     pyr = [img]
     for _ in range(levels):
-        pyr.append(_pyr_down(pyr[-1]))
+        pyr.append(_pyr_down(pyr[-1], precision))
     return tuple(pyr)
 
 

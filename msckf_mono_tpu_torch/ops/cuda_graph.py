@@ -217,13 +217,14 @@ class StepGraph:
 
     def _capture(self):
         dev = self.device
-        warm_up(lambda c, *xs: self.fn(c, *xs, *self.static), (self.carry, *self._xs),
-                self.counters)
-        side = torch.cuda.Stream(dev)
-        self.graph = torch.cuda.CUDAGraph()
-        with counted_apart(self.counters) as delta:
-            with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
-                self._y = self._body()
+        with torch.cuda.device(dev):
+            warm_up(lambda c, *xs: self.fn(c, *xs, *self.static), (self.carry, *self._xs),
+                    self.counters)
+            side = torch.cuda.Stream(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            with counted_apart(self.counters) as delta:
+                with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+                    self._y = self._body()
         self.delta = delta
 
     def __call__(self, carry, *xs):
@@ -279,6 +280,38 @@ def scan(fn, carry, xs, static: tuple = ()):
     axis of every leaf of ``xs``; returns (final carry, ys stacked on a new
     leading axis). Replays one cached graph a step on CUDA tensors; eager
     under :func:`disabled`."""
+    return scans(fn, [carry], [xs], static)[0]
+
+
+def scans(fn, carries, xss, static: tuple = ()):
+    """Several independent :func:`scan` runs, each carry on its own device,
+    stepped in turn one frame at a time, so that every device has work
+    queued before the host waits on any: returns a list of (final carry,
+    ys).
+
+    Two carries of equal shapes on one device would share one cached
+    :class:`StepGraph` and its buffers, and stepping them in turn would
+    overwrite one's carry with the other's: that raises. Run such scans
+    one after another (each :func:`scan` ends by cloning its carry)."""
+    devices = [flatten(c)[0][0].device for c in carries]
+    if len(set(devices)) != len(devices):
+        raise ValueError(f"scans: two carries on one device ({devices}); run them one after another")
+    runs = [_scan_steps(fn, c, xs, static) for c, xs in zip(carries, xss)]
+    results = [None] * len(runs)
+    live = list(range(len(runs)))
+    while live:
+        for i in list(live):
+            try:
+                next(runs[i])
+            except StopIteration as done:
+                results[i] = done.value
+                live.remove(i)
+    return results
+
+
+def _scan_steps(fn, carry, xs, static):
+    """:func:`scan` as a generator that yields once a step is queued and
+    returns (final carry, ys)."""
     x_leaves, _ = flatten(xs)
     T = x_leaves[0].shape[0]
     if not enabled():
@@ -286,6 +319,7 @@ def scan(fn, carry, xs, static: tuple = ()):
         for t in range(T):
             carry, y = fn(carry, _at(xs, t), *static)
             ys.append(y)
+            yield
         y_leaves = [flatten(y)[0] for y in ys]
         return carry, unflatten(flatten(ys[0])[1], [torch.stack(c) for c in zip(*y_leaves)])
 
@@ -301,6 +335,7 @@ def scan(fn, carry, xs, static: tuple = ()):
                       for v in y_leaves]
         for s, v in zip(stacks, y_leaves):
             s[t].copy_(v)
+        yield
     return clone(carry), unflatten(y_struct, stacks)
 
 

@@ -258,3 +258,19 @@ EUROC_CONFIG = MsckfConfig(
     filter=FilterConfig(max_cam_states=20),
     shapes=ShapeConfig(num_slots=28),
 )
+
+
+def serving_config(batch: int) -> MsckfConfig:
+    """``bench.py:117-164``'s serving configuration for a fleet of ``batch``
+    filters: one fused marginalize + prune update a frame, the gate's "high"
+    tier, ``max_staged`` 8, observation caps 2 / 22, and the row-pipeline
+    chunks sized to the batch."""
+    cfg = MsckfConfig()
+    pchunk = 48 if batch <= 1024 else {2048: 24, 4096: 12}.get(batch, 6)
+    return dataclasses.replace(
+        cfg,
+        filter=dataclasses.replace(cfg.filter, fused_updates=True, gating_precision="high"),
+        shapes=dataclasses.replace(cfg.shapes, staged_chunk=max(2, 8192 // batch),
+                                   max_staged=8, prune_obs_cap=2, marg_obs_cap=22,
+                                   prune_chunk=pchunk),
+    )

@@ -6,8 +6,9 @@
   bounds, tests/test_write_asl_e2e.py), and the ``--out`` npz keys and
   shapes; the same with ``--dataset pcv`` on a PennCOSYVIO tree and with the
   standstill init;
-* ``cli/run_synthetic --cpu --batch 2 --frames 20``: the JAX runner's
-  report keys, finite and small ATE, and ``--f64`` within 1e-6 m of the JAX
+* ``cli/run_synthetic --cpu --batch 2 --frames 20``: through
+  ``make_sharded_run`` on a one-device CPU mesh, the JAX runner's report
+  keys, finite and small ATE, and ``--f64`` within 1e-6 m of the JAX
   package's f64 trajectory (same world, zero perturbation);
 * against the JAX ``run_euroc`` itself on the same tree: marked slow, since
   the JAX runner's compile of the default-size step alone exceeds a minute on
@@ -82,8 +83,15 @@ def test_run_euroc_standstill_init_cpu(trees, capsys):
     assert np.isfinite(report["ate_rmse"])
 
 
-def test_run_synthetic_cpu(capsys):
+def test_run_synthetic_cpu(capsys, monkeypatch):
+    from msckf_mono_tpu_torch.parallel import sharding
+
+    meshes = []
+    make_sharded_run = sharding.make_sharded_run
+    monkeypatch.setattr(sharding, "make_sharded_run",
+                        lambda cfg, mesh: meshes.append(mesh) or make_sharded_run(cfg, mesh))
     report = run_synthetic.main(["--cpu", "--batch", "2", "--frames", "20"])
+    assert [[str(d) for d in m.devices] for m in meshes] == [["cpu"]]   # through the mesh, as JAX's
     assert json.loads(capsys.readouterr().out) == report
     assert set(report) == {"batch", "frames", "wall_s", "frame_steps_per_s", "ate_mean", "ate_p90",
                            "drift_mean", "metrics"}

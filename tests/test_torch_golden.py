@@ -5,6 +5,11 @@ package's numpy modules, and its import hygiene.
   ``eval/golden.GOLDEN_SPEC`` reproduces ``tests/golden/synthetic_f64.npz``
   (p, q, v within 1e-6, P trace rtol 1e-6, num_residualized equal). No JAX
   run is needed.
+* ``eval/golden``: the port's ``compare_to_golden()`` passes at JAX's own
+  tolerances (rtol = atol = 1e-9), ``write_golden`` round-trips through
+  ``compare_to_golden(path)``, the committed file's bytes stay as they are,
+  and ``--write`` needs ``--path``. One run of the golden sequence serves
+  these tests.
 * ``data/synthetic.generate`` / ``to_frame_inputs``, ``data/render`` and
   ``eval/ate`` are the port's own copies: they give the JAX package's values
   exactly.
@@ -12,6 +17,7 @@ package's numpy modules, and its import hygiene.
 """
 
 import dataclasses
+import hashlib
 import subprocess
 import sys
 from pathlib import Path
@@ -29,6 +35,7 @@ from msckf_mono_tpu_torch.core import filter as tfilter
 from msckf_mono_tpu_torch.data import render as trender
 from msckf_mono_tpu_torch.data import synthetic as tsyn
 from msckf_mono_tpu_torch.eval import ate as tate
+from msckf_mono_tpu_torch.eval import golden as tgolden
 from msckf_mono_tpu_torch.parallel import sharding as tsharding
 
 from tests import _torch_port as tp
@@ -48,6 +55,37 @@ def test_reproduces_committed_golden():
     assert int(final.num_residualized[0]) == int(golden["num_residualized"])
     np.testing.assert_array_equal(seq.gt_p, golden["gt_p"])
     assert tsharding.fleet_metrics(final)["total_residualized"] == int(golden["num_residualized"])
+
+
+@pytest.fixture(scope="module")
+def golden_run():
+    """The port's run_golden_sequence(), once for the module."""
+    return tgolden.run_golden_sequence()
+
+
+def _sha(path):
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def test_compare_to_golden_at_jax_tolerances(golden_run, monkeypatch):
+    assert tgolden.GOLDEN_SPEC == jgolden.GOLDEN_SPEC
+    assert Path(tgolden.DEFAULT_PATH) == Path(jgolden.DEFAULT_PATH)
+    monkeypatch.setattr(tgolden, "run_golden_sequence", lambda: golden_run)
+    errs = tgolden.compare_to_golden()
+    assert set(errs) == {"p", "q", "v"} and max(errs.values()) <= 1e-9, errs
+    assert golden_run["p"].dtype == np.float64 and golden_run["p"].shape == (100, 3)
+
+
+def test_write_golden_round_trips_and_leaves_the_committed_file(golden_run, monkeypatch, tmp_path):
+    before = _sha(tgolden.DEFAULT_PATH)
+    with pytest.raises(SystemExit):
+        tgolden.main(["--write"])
+    monkeypatch.setattr(tgolden, "run_golden_sequence", lambda: golden_run)
+    path = tgolden.write_golden(str(tmp_path / "golden.npz"))
+    assert set(np.load(path)) == set(np.load(tgolden.DEFAULT_PATH))
+    assert tgolden.compare_to_golden(path, rtol=0, atol=0) == {"p": 0.0, "q": 0.0, "v": 0.0}
+    assert _sha(tgolden.DEFAULT_PATH) == before
 
 
 def test_synthetic_copy_matches_jax():
@@ -113,9 +151,10 @@ def test_import_hygiene():
     for live in ("interface", "cli.run_euroc", "cli.run_synthetic", "frontend.track_handler",
                  "frontend.ransac", "frontend.visualize", "data.asl", "data.sync", "data.penncosy",
                  "data.native_loader", "data.png", "data.write_asl", "data.write_penncosy",
-                 "ops.cuda_graph", "eval.timing", "eval.profile"):
+                 "ops.cuda_graph", "eval.timing", "eval.profile", "parallel.checkpoint",
+                 "parallel.two_host_sim", "eval.golden"):
         assert f"msckf_mono_tpu_torch.{live}" in MODULES
-    assert len(MODULES) >= 54
+    assert len(MODULES) >= 57
     code = (
         "import sys, importlib\n"
         f"for name in {BLOCKED!r}:\n"
