@@ -20,9 +20,16 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    the image path's shapes: the kernel (one call, and device time), the
    plain version, the nearest library calls (cholesky_ex + solve_triangular),
    and the memory bound;
+   [prng]: utils/prng (the JAX package's threefry2x32 draws) on the card
+   against the same calls on the CPU: split, random_bits (32 and 64),
+   randint at RANSAC's shapes with a device maxval and RANSAC's
+   sample_pairs bit-equal; normal (1024, 3) f32 within 2 eps relative, f64
+   within 1e-12; a captured graph that splits a carried key and samples the
+   pairs equal to an eager loop over 10 replays, and the draw's device time;
 4. [main], [profile], [gate]: the filter path on precomputed tracks, the
    serving configuration of bench.py (fused updates, caps 2/22, max_staged 8)
-   on a 1024-filter fleet over the 200-frame synthetic sequence: make_fleet ->
+   on a 1024-filter fleet over the 200-frame synthetic sequence: make_fleet
+   (key 0, the JAX package's draws: filter 0 is BENCH_r05's) ->
    run_sequence (one captured CUDA graph of the step, replayed a frame) ->
    fleet_metrics, with launch counts and peak memory with the graph's pool;
    then, from the fleet's state after frame 30, a profile of frames 30-32
@@ -42,8 +49,12 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    on the main run's fleet (drawn once, then split) and frames, in three
    setups: (a) make_mesh() in a one-rank NCCL group, bit-equal to [main]
    with its metrics equal to [main]'s fleet_metrics (means within 1e-6
-   relative); (b) two shards of B/2 on cuda:0, bit-equal to [main] or every
-   counter equal and positions within 2e-2 m; (c) python -m
+   relative); (b) two shards of B/2 on cuda:0, each bit-equal to its half
+   of the fleet run alone at B/2 (batched_run_sequence), and bit-equal to
+   [main] or residualized and row_overflow equal to [main]'s,
+   staged_overflow within STAGED_OVERFLOW_SLACK of it and positions within
+   2e-2 m (tests/test_sharding.py:65; other GEMM shapes round
+   differently); (c) python -m
    msckf_mono_tpu_torch.parallel.two_host_sim: two processes on the card
    joined by gloo, one shard each, whose ``ok`` must hold and whose totals
    must equal (b)'s; each with its frame time, rate, gamma launches (2 a
@@ -108,6 +119,14 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    [live-graph] the same interface under ops/cuda_graph.disabled() over 60
    frames: ids equal to [live]'s on every frame, positions within 1e-3 m,
    latency, syncs and profile beside [live]'s;
+   [live-ransac] the same interface with two-point RANSAC on over the 200
+   frames, then finish(): the pairs drawn on the card from the tracker's
+   carried key inside the frame's graph, one graph launch an image from the
+   second on; p50/p99 against 50 ms beside an eager run of the first 60
+   frames (cuda_graph.disabled()), which must equal the replayed frames bit
+   for bit (ids and positions), with the gamma, FAST and KLT launches of
+   its frames 30-33 held against the plain versions as [live-replay] holds
+   [live]'s; syncs a frame, exact launches, ATE;
    [live-parity] 60 frames with use_qr_compression and use_anisotropic_r;
    [live-replay] every gamma, FAST and KLT launch of frames 30-33 of
    [live] against the plain versions (as phase 7), then each kernel's
@@ -142,6 +161,10 @@ BENCH_R05 = {"ate_m": 0.2999, "residualized": 200704, "row_overflow": 8192,
              "staged_overflow": 59627}
 # BENCH_IMAGES.json (JAX package on a TPU): the accuracy reference only.
 BENCH_IMAGES_ATE = {"shared": 0.2965, "independent": 0.3068}
+# The JAX package's filter 0 (key 0) on the shared-camera image path at
+# image_precision="highest", 200 frames, run on the CPU
+# (tests/test_torch_image_ate.py): the accuracy reference only.
+JAX_CPU_IMAGE_ATE = 0.3429
 ATE_GATE_M = 0.45            # bench.py:34
 REPLACES = "msckf_mono_tpu/ops/psd_pallas.py:43"
 SOURCE = "msckf_mono_tpu_torch/csrc/psd_gamma.cu"
@@ -406,6 +429,84 @@ def phase_kernel(torch):
     return per_shape
 
 
+PRNG_SEEDS = (0, 1, 2**32 - 1)
+PRNG_REPLAYS = 10
+RANSAC_F = 128               # the live tracker's feature slots: RANSAC's points
+
+
+def phase_prng(torch):
+    """[prng]: utils/prng (JAX's threefry2x32) on the card against the same
+    calls on the CPU: split, random_bits (32 and 64), randint at RANSAC's
+    shapes with a device maxval and RANSAC's sample_pairs bit-equal, normal
+    (1024, 3) f32 within 2 eps relative and f64 within 1e-12; then a
+    captured graph that splits a carried key and samples the pairs, against
+    an eager loop over PRNG_REPLAYS replays, and the draw's device time."""
+    from msckf_mono_tpu_torch.frontend import ransac
+    from msckf_mono_tpu_torch.ops import cuda_graph
+    from msckf_mono_tpu_torch.utils import prng
+
+    n_int = 0
+    for seed in PRNG_SEEDS:
+        k = prng.PRNGKey(seed)
+        kd = k.cuda()
+        check(torch.equal(prng.split(kd, 5).cpu(), prng.split(k, 5)), f"[prng] split, key {seed}")
+        for width in (32, 64):
+            for shape in ((300,), (1024, 3)):
+                got, want = prng.random_bits(kd, width, shape).cpu(), prng.random_bits(k, width, shape)
+                check(torch.equal(got, want), f"[prng] random_bits {width} {shape}, key {seed}")
+                n_int += want.numel()
+        for bits in (32, 64):
+            for n in (2, 5, 37, RANSAC_F):
+                got = prng.randint(kd, (300,), 0, torch.tensor(n, device="cuda"), bits).cpu()
+                want = prng.randint(k, (300,), 0, torch.tensor(n), bits)
+                check(torch.equal(got, want), f"[prng] randint [0, {n}) {bits}-bit, key {seed}")
+                n_int += want.numel()
+            for n_valid in (0, 3, 40, RANSAC_F):
+                valid = torch.zeros(RANSAC_F, dtype=torch.bool)
+                valid[torch.randperm(RANSAC_F, generator=torch.Generator().manual_seed(n_valid))[:n_valid]] = True
+                got = ransac.sample_pairs(valid.cuda(), kd, int_bits=bits)
+                want = ransac.sample_pairs(valid, k, int_bits=bits)
+                check(all(torch.equal(g.cpu(), w) for g, w in zip(got, want)),
+                      f"[prng] sample_pairs {n_valid} valid, {bits}-bit, key {seed}")
+                n_int += 2 * want[0].numel()
+    eps = float(np.finfo(np.float32).eps)
+    k = prng.PRNGKey(0)
+    got = prng.normal(k.cuda(), (1024, 3), torch.float32).cpu().double()
+    want = prng.normal(k, (1024, 3), torch.float32).double()
+    gap_eps = float(((got - want).abs() / (eps * want.abs())).max())
+    same32 = float((got == want).double().mean())
+    got64 = prng.normal(k.cuda(), (1024, 3), torch.float64).cpu()
+    want64 = prng.normal(k, (1024, 3), torch.float64)
+    rel64 = float(((got64 - want64).abs() / want64.abs()).max())
+    log(f"[prng] integers bit-equal to the CPU's ({n_int} values: split, random_bits 32/64, randint "
+        f"[0, n) with a device maxval, sample_pairs at F = {RANSAC_F}, 32- and 64-bit, keys "
+        f"{list(PRNG_SEEDS)}); normal (1024, 3) f32 max gap {gap_eps:.3f} eps relative, "
+        f"{100 * same32:.2f}% bit-equal; f64 max relative gap {rel64:.3e}")
+    check(gap_eps <= 2.0, f"[prng] f32 normal {gap_eps:.3f} eps from the CPU's")
+    check(rel64 <= 1e-12, f"[prng] f64 normal {rel64:.3e} from the CPU's")
+
+    valid = torch.zeros(RANSAC_F, dtype=torch.bool, device="cuda")
+    valid[:40] = True
+
+    def step(key, v):
+        key, sub = prng.split(key)
+        return key, ransac.sample_pairs(v, sub)
+
+    graph = cuda_graph.StepGraph(step, prng.PRNGKey(0, "cuda"), (valid,))
+    key, eager = prng.PRNGKey(0, "cuda"), prng.PRNGKey(0, "cuda")
+    for i in range(PRNG_REPLAYS):
+        key, (i1, i2) = graph(key, valid)
+        eager, (w1, w2) = step(eager, valid)
+        check(torch.equal(key, eager) and torch.equal(i1, w1) and torch.equal(i2, w2),
+              f"[prng] replay {i}: keys or pairs differ from the eager loop")
+    draw_ms = _graph_ms(torch, lambda: step(eager, valid))
+    log(f"[prng] a captured key split + RANSAC pair draw: {PRNG_REPLAYS} replays equal to the "
+        f"eager loop (keys and pairs); device time {draw_ms:.4f} ms a draw (300 pairs)")
+    return dict(integers_checked=n_int, normal_f32_max_gap_eps=gap_eps,
+                normal_f32_bit_equal_share=same32, normal_f64_max_rel=rel64,
+                replays_equal=PRNG_REPLAYS, ransac_draw_device_ms=draw_ms)
+
+
 def serving_config(batch):
     """bench.py:123-164's serving configuration at this batch size."""
     from msckf_mono_tpu_torch.utils.config import serving_config as config
@@ -429,8 +530,8 @@ def phase_main(torch, batch, frames):
     frames_dev = montecarlo.broadcast_frames(
         synthetic.to_frame_inputs(seq, torch.float32, device="cuda"), batch)
     run = sharding.batched_run_sequence(cfg)
-    make = lambda: montecarlo.make_fleet(cfg, imu, batch, torch.Generator().manual_seed(0),
-                                         dtype=torch.float32, device="cuda")
+    # key 0: the JAX package's fleet, drawn on the CPU (filter 0 is BENCH_r05's)
+    make = lambda: montecarlo.make_fleet(cfg, imu, batch, dtype=torch.float32, device="cuda")
 
     # Warm-up on two frames, outside the count: on the card it captures the
     # step's graph (library handles, allocator, the graph's pool).
@@ -462,7 +563,8 @@ def phase_main(torch, batch, frames):
         f"graph a frame: {seconds:.2f} s, {batch * frames / seconds:.1f} frame-steps/s, "
         f"peak memory {peak:.2f} GiB allocated, {reserved:.2f} GiB reserved with the graph's "
         f"pool (capture and 2 warm-up frames {capture_s:.2f} s)")
-    log(f"[main] ATE(filter 0) {ate0:.4f} m (BENCH_r05 {BENCH_R05['ate_m']}); "
+    log(f"[main] ATE(filter 0) {ate0:.4f} m (the same filter, the JAX package's key 0, on a TPU: "
+        f"BENCH_r05 {BENCH_R05['ate_m']} m; a record, not a gate); "
         f"residualized {int(m['total_residualized'])} ({BENCH_R05['residualized']}), "
         f"row_overflow {int(m['total_row_overflow'])} ({BENCH_R05['row_overflow']}), "
         f"staged_overflow {int(m['total_staged_overflow'])} ({BENCH_R05['staged_overflow']}); "
@@ -774,8 +876,7 @@ def image_run(torch, tag, seq, imgs, B, independent, fcfg):
     Bi = B if independent else 1
 
     def make():
-        return (montecarlo.make_fleet(cfg, imu, B, torch.Generator().manual_seed(0),
-                                      dtype=torch.float32, device="cuda"),
+        return (montecarlo.make_fleet(cfg, imu, B, dtype=torch.float32, device="cuda"),
                 init_frontend_state(H, W, fcfg, B, Bi, torch.float32, device="cuda"))
 
     torch.cuda.synchronize()
@@ -807,7 +908,9 @@ def image_run(torch, tag, seq, imgs, B, independent, fcfg):
         f"{B * T / seconds:.1f} image-frame-steps/s, peak memory {peak:.2f} GiB allocated, "
         f"{reserved:.2f} GiB reserved with the graph's pool (capture and 2 warm-up frames "
         f"{capture_s:.2f} s)")
-    log(f"[{tag}] ATE(filter 0) {ate0:.4f} m (JAX package on a TPU, BENCH_IMAGES.json: {ref}); "
+    log(f"[{tag}] ATE(filter 0) {ate0:.4f} m (the same filter, the JAX package's key 0: "
+        f"BENCH_IMAGES.json {ref} m on a TPU at its \"default\" tier, "
+        f"{JAX_CPU_IMAGE_ATE} m on the CPU at \"highest\"; a record, not a gate); "
         f"residualized {int(m['total_residualized'])}, row_overflow {int(m['total_row_overflow'])}, "
         f"staged_overflow {int(m['total_staged_overflow'])}, mean cam count "
         f"{m['mean_cam_count']:.1f}; live tracks at the end {int(ffinal.valid.sum())} "
@@ -895,16 +998,15 @@ def phase_replay(torch, tag, run, state, fstate, frames):
     log(f"[{tag}] FAST: {len(fast_calls)} launches on {tuple(fast_calls[0][0].shape)}, each equal "
         f"to the plain version bit for bit ({sum(int((c[2] > 0).sum()) for c in fast_calls)} corners)")
 
-    klt = _klt_replay(torch, tag, klt_calls, track)
+    klt = _klt_replay(torch, tag, klt_calls, track, *_klt_compare_calls(torch, tag, klt_calls))
     klt["fast_max_abs_err"] = fast_err
     return klt
 
 
-def _klt_replay(torch, tag, klt_calls, track):
+def _klt_compare_calls(torch, tag, klt_calls):
     """Recorded LK-level launches (4 a frame, top level first) against the
     plain version, with the live LK iterations and the pixels read for the
-    bound; then the kernel, device and plain times and the bound of the
-    first recorded frame's four levels."""
+    bound. Returns each call's record and the largest absolute error."""
     from msckf_mono_tpu_torch.ops import klt_cuda
 
     levels = []
@@ -932,6 +1034,14 @@ def _klt_replay(torch, tag, klt_calls, track):
             f"{rest} beyond (max {rest_max:.4f} px); {live} live iterations "
             f"({live / max(n, 1):.2f} a good feature); {pixels} pixels read of "
             f"{2 * Bi * H * W} in the two levels")
+    return levels, worst
+
+
+def _klt_replay(torch, tag, klt_calls, track, levels, worst):
+    """The kernel, device and plain times and the bound of the first
+    recorded frame's four LK levels; ``levels`` and ``worst`` are
+    _klt_compare_calls' result on the same calls."""
+    from msckf_mono_tpu_torch.ops import klt_cuda
 
     # times and bounds on the first recorded frame's launches (4 levels)
     klt = dict(ms=0.0, device_ms=0.0, plain_ms=0.0, bound_ms=0.0, bound_ms_30_iters=0.0,
@@ -1520,16 +1630,105 @@ def phase_live_graph(torch, seq, imgs, cfg, live, live_profile):
                 eager_profile=profile, replay_profile=live_profile)
 
 
-def phase_live_replay(torch, cfg, rec):
-    """The recorded live launches against the plain versions, then each
-    kernel's times at the live shapes."""
+def phase_live_ransac(torch, seq, imgs, cfg, live):
+    """[live-ransac]: VioInterface with two-point RANSAC on over [live]'s
+    frames, GT init, then finish(): the hypothesis pairs drawn on the card
+    from the tracker's carried key inside the frame's graph (one replay a
+    frame from the second image on); latency, syncs, launches, ATE; then
+    the first GRAPH_EAGER_FRAMES frames under cuda_graph.disabled(), whose
+    ids and positions must equal the replayed run's bit for bit, with the
+    launches of frames LIVE_REPLAY recorded there and held against the
+    plain versions (so they are the replayed run's launches too)."""
+    import contextlib
+
+    from msckf_mono_tpu_torch.eval.ate import ate_rmse, final_drift
+    from msckf_mono_tpu_torch.interface import VioInterface
+    from msckf_mono_tpu_torch.ops import cuda_graph
+
+    frames = imgs.shape[0]
+    imgs_host = imgs.cpu().numpy()
+
+    def run(n, eager, recorder=None):
+        vio = VioInterface(cfg, device="cuda", track_handler_kwargs=dict(LIVE_TH, use_ransac=True))
+        vio.initialize_from_ground_truth(**GT_INIT, b_g=seq.b_g, b_a=seq.b_a)
+        lat, ids, pos, per_frame = [], [], [], []
+        syncs = SyncCounter(torch)
+        torch.cuda.synchronize()
+        _zero_counts()
+        with cuda_graph.disabled() if eager else contextlib.nullcontext():
+            for i in range(n):
+                if recorder is not None and i in LIVE_REPLAY:
+                    recorder.on()
+                _live_frame(torch, vio, seq, imgs_host, i, lat, syncs, per_frame)
+                if recorder is not None:
+                    recorder.off()
+                pos.append(vio.odometry()["p_I_G"])
+                ids.append(vio.track_handler.cur_ids[0].cpu().numpy().copy())
+            if not eager:
+                vio.finish()
+                torch.cuda.synchronize()
+        return dict(vio=vio, lat=lat, ids=np.asarray(ids), pos=np.asarray(pos),
+                    per_frame=per_frame, syncs=syncs, launches=_counts())
+
+    r = run(frames, eager=False)
+    vio = r["vio"]
+    replays = sum(g.replays for g in vio._live_frame.graphs.values())
+    per_image = replays / (frames - 1)
+    replayed = r["lat"][2:]                       # after the eager first frame and the capture
+    p50, p99 = _percentile(replayed, 50), _percentile(replayed, 99)
+    steady = r["per_frame"][2:]
+    want = live_expected_launches(cfg, frames)
+    est = r["pos"]
+    check(np.all(np.isfinite(est)), "[live-ransac] non-finite trajectory")
+    ate, drift = ate_rmse(est, seq.gt_p[:frames]), final_drift(est, seq.gt_p[:frames])
+    tracked, tracked_off = int((r["ids"] >= 0).sum()), int((live["_ids"] >= 0).sum())
+    n = GRAPH_EAGER_FRAMES
+    rec = LaunchRecorder()
+    e = run(n, eager=True, recorder=rec)
+    e_p50, e_p99 = _percentile(e["lat"], 50), _percentile(e["lat"], 99)
+    same = np.array_equal(e["ids"], r["ids"][:n]) and np.array_equal(e["pos"], r["pos"][:n])
+    want_e = live_expected_launches(cfg, n, finish=False)
+    log(f"[live-ransac] VioInterface on cuda with two-point RANSAC on, {frames} frames, default "
+        f"MsckfConfig, GT init, finish(): {replays} frames replayed from the captured frame graph "
+        f"({per_image:.2f} graph launches an image from the second on); image_callback p50 "
+        f"{p50:.2f} ms, p99 {p99:.2f} ms of the {len(replayed)} replayed frames (camera period "
+        f"{CAMERA_PERIOD_MS:.0f} ms: {'kept up' if p99 <= CAMERA_PERIOD_MS else 'NOT kept up'}; "
+        f"[live] with RANSAC off p50 {live['p50_ms']:.2f} ms, p99 {live['p99_ms']:.2f} ms)")
+    log(f"[live-ransac] eager (cuda_graph.disabled()), the first {n} frames: p50 {e_p50:.2f} ms, "
+        f"p99 {e_p99:.2f} ms; bit-equal to the replayed run (ids and positions) {same}")
+    log(f"[live-ransac] synchronizing calls a frame {r['syncs'].count / frames:.2f} (from the third "
+        f"frame on: max {max(steady)}; {r['syncs'].summary(frames)}); launches FAST "
+        f"{r['launches'][0]}, KLT {r['launches'][1]}, gamma {r['launches'][2]} (expected "
+        f"{want[0]}, {want[1]}, {want[2]}); ATE(filter 0) {ate:.4f} m ([live] {live['ate']:.4f} m), "
+        f"final drift {drift:.4f} m; tracked feature-frames {tracked} ({tracked_off} with RANSAC off)")
+    check(replays == frames - 1, f"[live-ransac] {replays} replayed frames of {frames}")
+    check(same, "[live-ransac] the replayed frames differ from the eager ones")
+    check(tuple(r["launches"]) == want, f"[live-ransac] launches {r['launches']}, expected {want}")
+    check(tuple(e["launches"]) == want_e, f"[live-ransac] eager launches {e['launches']}, "
+          f"expected {want_e}")
+    check(max(steady) <= 1, f"[live-ransac] {max(steady)} synchronizing calls in a frame")
+    check(drift < 1.0, f"[live-ransac] final drift {drift:.4f} m >= 1 m")
+    err = _live_compare(torch, "live-ransac", cfg, rec)
+    return dict(max_abs_err={k: err[k] for k in ("gamma", "fast", "klt")},frames=frames, replayed_frames=replays, graph_launches_per_image=per_image,
+                p50_ms=p50, p99_ms=p99, max_ms=max(replayed), eager_frames=n, eager_p50_ms=e_p50,
+                eager_p99_ms=e_p99, bit_equal=same, syncs_per_frame=r["syncs"].count / frames,
+                steady_syncs_max=max(steady), ate=ate, final_drift=drift,
+                tracked_feature_frames=tracked, tracked_feature_frames_ransac_off=tracked_off,
+                launches=dict(zip(("fast", "klt", "gamma"), r["launches"])))
+
+
+def _live_compare(torch, tag, cfg, rec):
+    """The launches of the LIVE_REPLAY frames recorded in ``rec`` against
+    the plain versions on the same inputs: gamma within 1e-3 relative with
+    identical gate decisions, FAST bit-equal, KLT as _klt_compare holds it.
+    Returns each kernel's largest absolute error."""
     from msckf_mono_tpu_torch.ops import fast_cuda, psd_cuda
     from msckf_mono_tpu_torch.utils.chi2 import gate_threshold
 
     n = len(LIVE_REPLAY)
     want = live_expected_launches(cfg, n, finish=False)
     check((len(rec.fast), len(rec.klt), len(rec.gamma), len(rec.dofs)) == (n, 4 * n, want[2], want[2]),
-          f"[live-replay] recorded FAST {len(rec.fast)}, KLT {len(rec.klt)}, gamma {len(rec.gamma)}, "
+          f"[{tag}] recorded FAST {len(rec.fast)}, KLT {len(rec.klt)}, gamma {len(rec.gamma)}, "
           f"gates {len(rec.dofs)} over {n} frames")
     # gamma: within 1e-3 relative, identical gate decisions
     rel_max, abs_max, lanes, same, passed = 0.0, 0.0, 0, 0, 0
@@ -1537,7 +1736,7 @@ def phase_live_replay(torch, cfg, rec):
         ref = psd_cuda.gamma_psd_plain(Smat, r)
         thr = gate_threshold(dof, reproduce_offbyone=cfg.filter.chi2_offbyone, dtype=torch.float32)
         fin = torch.isfinite(ref)
-        check(torch.equal(torch.isfinite(got), fin), "[live-replay] gamma: finite lanes differ")
+        check(torch.equal(torch.isfinite(got), fin), f"[{tag}] gamma: finite lanes differ")
         if bool(fin.any()):
             err = (got[fin] - ref[fin]).abs()
             rel_max = max(rel_max, (err / ref[fin].abs().clamp_min(1e-30)).max().item())
@@ -1546,11 +1745,33 @@ def phase_live_replay(torch, cfg, rec):
         same += int(((got < thr) == (ref < thr)).sum())
         passed += int(((ref < thr) & (r != 0).any(-1)).sum())
     shape = tuple(rec.gamma[0][0].shape)
-    log(f"[live-replay] gamma: {len(rec.gamma)} launches on S {shape} "
+    log(f"[{tag}] gamma: {len(rec.gamma)} launches on S {shape} "
         f"({psd_cuda.launch_plan(shape[-1]).variant} variant): max rel err {rel_max:.2e}, max abs err "
         f"{abs_max:.3e}; decisions identical on {same}/{lanes} lanes ({passed} pass with rows)")
-    check(rel_max <= 1e-3, f"[live-replay] gamma max relative error {rel_max:.3e} > 1e-3")
-    check(same == lanes, f"[live-replay] gamma decisions differ on {lanes - same} lanes")
+    check(rel_max <= 1e-3, f"[{tag}] gamma max relative error {rel_max:.3e} > 1e-3")
+    check(same == lanes, f"[{tag}] gamma decisions differ on {lanes - same} lanes")
+
+    fast_err = 0.0
+    for i, (img, thr, got) in enumerate(rec.fast):
+        ref = fast_cuda.fast_nms_score_plain(img, thr)
+        fast_err = max(fast_err, float((got - ref).abs().max()))
+        check(torch.equal(got, ref), f"[{tag}] FAST frame {i} differs on "
+              f"{int((got != ref).sum())} pixels")
+    log(f"[{tag}] FAST: {len(rec.fast)} launches on {tuple(rec.fast[0][0].shape)}, each bit-equal "
+        f"to the plain version")
+    levels, klt_err = _klt_compare_calls(torch, tag, rec.klt)
+    return dict(gamma=abs_max, fast=fast_err, klt=klt_err, gamma_max_rel_err=rel_max,
+                klt_levels=levels)
+
+
+def phase_live_replay(torch, cfg, rec):
+    """The recorded live launches against the plain versions, then each
+    kernel's times at the live shapes."""
+    from msckf_mono_tpu_torch.ops import fast_cuda, psd_cuda
+
+    n = len(LIVE_REPLAY)
+    want = live_expected_launches(cfg, n, finish=False)
+    err = _live_compare(torch, "live-replay", cfg, rec)
     Smat, r, _ = rec.gamma[0]
     R = Smat.shape[-1]
     nsys = Smat.numel() // (R * R)
@@ -1567,38 +1788,33 @@ def phase_live_replay(torch, cfg, rec):
                  device_ms=_graph_ms(torch, lambda: psd_cuda.gamma_psd(Smat, r)),
                  plain_ms=_time_ms(torch, lambda: psd_cuda.gamma_psd_plain(Smat, r)),
                  library_ms=_time_ms(torch, library), bound_ms=max(bytes_ms, ops_ms),
-                 bound_by="bytes" if bytes_ms >= ops_ms else "operations", max_abs_err=abs_max,
-                 launches_per_frame=want[2] // n)
+                 bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                 max_abs_err=err["gamma"], launches_per_frame=want[2] // n)
     log(f"[live-replay] gamma R={R} n={nsys}: kernel {gamma['ms']:.4f} ms a call, "
         f"{gamma['device_ms']:.4f} ms on the device, plain {gamma['plain_ms']:.4f} ms, library "
         f"{gamma['library_ms']:.4f} ms, bound {gamma['bound_ms']:.6f} ms ({gamma['bound_by']})")
 
-    # FAST: bit-equal, with its bound on each recorded image
-    fast_err = 0.0
-    for i, (img, thr, got) in enumerate(rec.fast):
-        ref = fast_cuda.fast_nms_score_plain(img, thr)
-        fast_err = max(fast_err, float((got - ref).abs().max()))
-        check(torch.equal(got, ref), f"[live-replay] FAST frame {i} differs on "
-              f"{int((got != ref).sum())} pixels")
+    # FAST: its bound on the first recorded image
     img, thr, _ = rec.fast[0]
     bound_ms, bound_by, share = _fast_bound(img, thr)
     fast = dict(shape=list(img.shape), ms=_time_ms(torch, lambda: fast_cuda.fast_nms_score(img, thr)),
                 device_ms=_graph_ms(torch, lambda: fast_cuda.fast_nms_score(img, thr)),
                 plain_ms=_time_ms(torch, lambda: fast_cuda.fast_nms_score_plain(img, thr), reps=10),
                 bound_ms=bound_ms, bound_by=bound_by, candidate_share=share, library_ms=None,
-                max_abs_err=fast_err)
-    log(f"[live-replay] FAST: {len(rec.fast)} launches on {tuple(img.shape)}, each bit-equal to the "
-        f"plain version; kernel {fast['ms']:.4f} ms a call, {fast['device_ms']:.4f} ms on the "
+                max_abs_err=err["fast"])
+    log(f"[live-replay] FAST on {tuple(img.shape)}: kernel {fast['ms']:.4f} ms a call, {fast['device_ms']:.4f} ms on the "
         f"device, plain {fast['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
         f"{100 * share:.3f}% of the pixels pass the pre-test)")
 
-    klt = _klt_replay(torch, "live-replay", rec.klt, rec.orig["klt"])
+    klt = _klt_replay(torch, "live-replay", rec.klt, rec.orig["klt"], err["klt_levels"],
+                      err["klt"])
     klt["library_ms"] = None
     return dict(gamma=gamma, fast=fast, klt=klt)
 
 def run_live_phases(torch, imgs):
     """[live-data], [live-cli], [live] with the replay recorded,
-    [live-profile], [live-parity] and [live-replay], on the rendered frames."""
+    [live-profile], [live-graph], [live-ransac], [live-parity] and
+    [live-replay], on the rendered frames."""
     import dataclasses as dc
     import shutil
     import tempfile
@@ -1622,6 +1838,7 @@ def run_live_phases(torch, imgs):
     live = phase_live(torch, "live", seq, imgs, T, cfg, recorder=rec)
     live_profile = phase_live_profile(torch, seq, imgs, cfg, live["p50_ms"])
     graph = phase_live_graph(torch, seq, imgs, cfg, live, live_profile)
+    ransac = phase_live_ransac(torch, seq, imgs, cfg, live)
     live = {k: v for k, v in live.items() if not k.startswith("_")}
     parity_cfg = dc.replace(cfg, filter=dc.replace(cfg.filter, use_qr_compression=True,
                                                    use_anisotropic_r=True))
@@ -1629,13 +1846,16 @@ def run_live_phases(torch, imgs):
     replay = phase_live_replay(torch, cfg, rec)
     return {"live": live, "live-cli": cli, "live-parity": {k: v for k, v in parity.items()
                                                           if not k.startswith("_")},
-            "live-graph": graph, "replay": replay, "decoder": decoder}
+            "live-graph": graph, "live-ransac": ransac, "replay": replay, "decoder": decoder}
 
 
 SHARDED_POS_ATOL = 2e-2        # tests/test_sharding.py:65
 GOLDEN_F32_FINDING_M = 1e-2    # an f32 gap to the golden above this is a finding (ROADMAP Queue 3)
 MAIN_RECHECK_FRAMES = 10
 COUNTERS = ("total_residualized", "total_row_overflow", "total_staged_overflow")
+# [sharded] (b)'s largest staged_overflow gap to [main] on the JAX fleet is 1
+# (B = 1024, 200 frames); a lost or doubled row moves it by its own count.
+STAGED_OVERFLOW_SLACK = 2
 
 
 def _free_port():
@@ -1708,6 +1928,7 @@ def phase_sharded(torch, main):
     import os
     import torch.distributed as dist
 
+    from msckf_mono_tpu_torch.core.types import tree_map
     from msckf_mono_tpu_torch.parallel import sharding
 
     final, outs = main["final"], main["outs"]
@@ -1732,16 +1953,46 @@ def phase_sharded(torch, main):
 
     b, b_final, b_outs, b_metrics = _sharded_setup(
         torch, "b", sharding.make_mesh(["cuda:0", "cuda:0"]), main)
-    b_equal = (_tree_equal(torch, b_final.gather(), final)
-               and _tree_equal(torch, b_outs.gather(), outs))
-    b_gap = float((b_outs.gather().p_I_G - outs.p_I_G).abs().max())
-    b["bit_equal"], b["max_pos_gap_m"] = b_equal, b_gap
-    log(f"[sharded] (b) bit-equal to [main]: {b_equal}; max position gap {b_gap:.3e} m; counters "
-        + ", ".join(f"{k} {int(b_metrics[k])} ([main] {int(want[k])})" for k in COUNTERS))
-    check(b_equal or (all(int(b_metrics[k]) == int(want[k]) for k in COUNTERS)
-                      and b_gap <= SHARDED_POS_ATOL),
-          f"[sharded] (b) counters differ or positions {b_gap:.3e} m > {SHARDED_POS_ATOL} m")
-    del b_final, b_outs
+    b_all, b_outs_all = b_final.gather(), b_outs.gather()
+    b_equal = _tree_equal(torch, b_all, final) and _tree_equal(torch, b_outs_all, outs)
+    b_gap = float((b_outs_all.p_I_G - outs.p_I_G).abs().max())
+    # Batched f32 products at B/2 round unlike those at B, so a filter may
+    # cross the staging limit on a frame of its own: staged_overflow is held
+    # within STAGED_OVERFLOW_SLACK, the other counters exactly. A split that
+    # lost or doubled a row would move the total by that row's own count.
+    b_so = b_all.diag.staged_overflow
+    so = final.diag.staged_overflow
+    so_rows = int((b_so != so).sum())
+    so_row_min = int(so[so > 0].min()) if bool((so > 0).any()) else 0
+    so_gap = abs(int(b_metrics["total_staged_overflow"]) - int(want["total_staged_overflow"]))
+    b_counters = all(int(b_metrics[k]) == int(want[k]) for k in COUNTERS[:2])
+    # The split itself: each shard against its half of the fleet run alone at
+    # B/2 through batched_run_sequence (the same step graph, the same shapes).
+    run = sharding.batched_run_sequence(main["cfg"])
+    halves = sharding.shard_batch(main["make"](), sharding.make_mesh(["cuda:0", "cuda:0"]))
+    halves_equal = True
+    for k, half in enumerate(halves.shards):
+        n = B // len(halves.shards)
+        h_final, h_outs = run(half, tree_map(lambda x: x[:, k * n:(k + 1) * n], main["frames"]))
+        halves_equal &= (_tree_equal(torch, h_final, b_final.shards[k])
+                         and _tree_equal(torch, h_outs, b_outs.shards[k]))
+    b.update(bit_equal=b_equal, max_pos_gap_m=b_gap, counters_equal_main=b_counters,
+             staged_overflow_gap=so_gap, staged_overflow_rows_differing=so_rows,
+             staged_overflow_row_min=so_row_min, halves_bit_equal=halves_equal)
+    log(f"[sharded] (b) each shard bit-equal to its half of the fleet run alone at B = {B // 2}: "
+        f"{halves_equal}; bit-equal to [main] (B = {B}): {b_equal}; max position gap to [main] "
+        f"{b_gap:.3e} m (limit {SHARDED_POS_ATOL} m); counters "
+        + ", ".join(f"{k} {int(b_metrics[k])} ([main] {int(want[k])})" for k in COUNTERS)
+        + f"; staged_overflow gap {so_gap} (limit {STAGED_OVERFLOW_SLACK}) from {so_rows} "
+        f"filter(s); the smallest nonzero count of one [main] filter {so_row_min}")
+    check(halves_equal, "[sharded] (b) a shard differs from its half of the fleet run alone")
+    check(b_equal or (b_counters and so_gap <= STAGED_OVERFLOW_SLACK and b_gap <= SHARDED_POS_ATOL),
+          f"[sharded] (b) residualized or row_overflow differ from [main]'s, staged_overflow "
+          f"{so_gap} > {STAGED_OVERFLOW_SLACK} from it, or positions {b_gap:.3e} m > "
+          f"{SHARDED_POS_ATOL} m")
+    check(STAGED_OVERFLOW_SLACK < so_row_min, f"[sharded] (b) a filter of [main] has only "
+          f"{so_row_min} staged overflows: the slack {STAGED_OVERFLOW_SLACK} could hide its row")
+    del b_final, b_outs, b_all, b_outs_all, halves
 
     from msckf_mono_tpu_torch.ops import cuda_graph
 
@@ -1982,6 +2233,7 @@ def main(argv=None):
     name, _ = phase_device(torch)
     usage = phase_build()
     per_shape = phase_kernel(torch)
+    prng_check = phase_prng(torch)
     launches, main_path = phase_main(torch, args.batch, args.frames)
     from msckf_mono_tpu_torch.core import filter as msckf_filter
     from msckf_mono_tpu_torch.ops import cuda_graph
@@ -2015,7 +2267,8 @@ def main(argv=None):
 
     by_path = {k: {"image": shared["launches"][k], "image-indep": indep["launches"][k],
                    "image-precision": precision["launches"][k],
-                   **{path: live[path]["launches"][k] for path in ("live", "live-cli", "live-parity")}}
+                   **{path: live[path]["launches"][k]
+                      for path in ("live", "live-cli", "live-parity", "live-ransac")}}
                for k in ("fast", "klt", "gamma")}
     by_path["gamma"].update({
         "sharded-a": sharded["a"]["gamma_launches"], "sharded-b": sharded["b"]["gamma_launches"],
@@ -2027,7 +2280,8 @@ def main(argv=None):
         "name": "psd_gamma", "route": "cuda", "source": SOURCE, "replaces": REPLACES,
         "launches": launches,
         "launches_by_path": {"main": launches, **by_path["gamma"]},
-        "max_abs_err": max(s["max_abs_err"] for s in per_shape),
+        "max_abs_err": max(*(s["max_abs_err"] for s in per_shape), live["replay"]["gamma"]["max_abs_err"],
+                           live["live-ransac"]["max_abs_err"]["gamma"]),
         **{k: sum(s[k] for s in main_shapes)
            for k in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms")},
         "bound_by": "bytes" if all(s["bound_by"] == "bytes" for s in main_shapes) else "operations",
@@ -2040,7 +2294,9 @@ def main(argv=None):
         "name": "fast_nms", "route": "cuda", "source": "msckf_mono_tpu_torch/csrc/fast_nms.cu",
         "replaces": "msckf_mono_tpu/ops/fast_pallas.py:37",
         "launches": shared["launches"]["fast"], "launches_by_path": by_path["fast"],
-        "max_abs_err": max(fast_err, replay["fast_max_abs_err"], replay_indep["fast_max_abs_err"]),
+        "max_abs_err": max(fast_err, replay["fast_max_abs_err"], replay_indep["fast_max_abs_err"],
+                           live["replay"]["fast"]["max_abs_err"],
+                           live["live-ransac"]["max_abs_err"]["fast"]),
         # one launch a frame on the shared camera's (1, 480, 752) image
         **{k: fast_shapes["shared"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
                                                  "bound_by", "candidate_share")},
@@ -2058,7 +2314,9 @@ def main(argv=None):
         "name": "klt_level", "route": "cuda", "source": "msckf_mono_tpu_torch/csrc/klt_level.cu",
         "replaces": "msckf_mono_tpu/ops/klt_pallas.py:60",
         "launches": shared["launches"]["klt"], "launches_by_path": by_path["klt"],
-        "max_abs_err": max(klt_err, replay["max_abs_err"], replay_indep["max_abs_err"]),
+        "max_abs_err": max(klt_err, replay["max_abs_err"], replay_indep["max_abs_err"],
+                           live["replay"]["klt"]["max_abs_err"],
+                           live["live-ransac"]["max_abs_err"]["klt"]),
         # the four level launches of one main-path frame, on its recorded inputs
         **{k: replay[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                                   "bound_ms_30_iters")},
@@ -2080,7 +2338,9 @@ def main(argv=None):
         entry["in_graph_per_frame"] = {path: prof["kernels"].get(key) for path, prof in profiles.items()}
     paths = {k: {kk: v for kk, v in r.items() if kk not in ("replay", "graph")}
              for k, r in (("image", shared), ("image-indep", indep))}
-    paths.update({k: live[k] for k in ("live", "live-cli", "live-parity", "live-graph")})
+    paths.update({k: live[k] for k in ("live", "live-cli", "live-parity", "live-graph",
+                                       "live-ransac")})
+    paths["prng"] = prng_check
     paths.update({"graph": graph, "image-graph": shared["graph"], "timing": timing,
                   "sharded": sharded, "checkpoint": ckpt, "golden": golden,
                   "image-precision": {k: v for k, v in precision.items() if k != "profile"}})

@@ -11,7 +11,9 @@ live callback API at B = 1; ``cli/run_euroc`` (EuRoC/ASL and PennCOSYVIO
 trees) and ``cli/run_synthetic``. Beneath them: the live front-end
 (``frontend/track_handler``, ``ransac``, ``visualize``) and the dataset layer
 (``data/asl``, ``sync``, ``penncosy``, ``native_loader``, ``png``,
-``write_asl``, ``write_penncosy``), which needs neither PyYAML nor Pillow.
+``write_asl``, ``write_penncosy``), which needs neither PyYAML nor Pillow;
+``utils/prng`` draws the fleet's and RANSAC's random numbers as the JAX
+package does (threefry2x32 keys).
 Every entry point runs on the card unless given ``device="cpu"`` (``--cpu``).
 """
 

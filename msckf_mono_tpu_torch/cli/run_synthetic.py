@@ -55,8 +55,8 @@ def main(argv=None):
     )
 
     sigmas = {} if args.perturb else dict(sigma_p=0, sigma_v=0, sigma_theta=0, sigma_bg=0, sigma_ba=0)
-    states = montecarlo.make_fleet(cfg, imu, args.batch, torch.Generator().manual_seed(args.seed),
-                                   dtype=dtype, device=device, **sigmas)
+    # key 0, as the JAX package's CLI draws it: --seed seeds the world only
+    states = montecarlo.make_fleet(cfg, imu, args.batch, dtype=dtype, device=device, **sigmas)
     batch_frames = montecarlo.broadcast_frames(frames, args.batch)
 
     mesh = sharding.make_mesh(["cpu"] if args.cpu else None)

@@ -6,11 +6,11 @@ rows of the 2x3 constraint matrix, what FullPivLU::kernel computes up to
 scale), Sampson-error inliers; every hypothesis is scored at once.
 
 Sampling is split from scoring: :func:`sample_pairs` draws the hypotheses'
-point pairs from an explicit ``torch.Generator`` (it cannot reproduce the JAX
-package's ``jax.random`` draws), and :func:`score_pairs` scores any given
-pairs, so the scoring can be held against the JAX package on its own pairs.
-The reference ships the filter disabled (``&& false``,
-corner_detector.cpp:366), and so does the track handler.
+point pairs from a ``utils/prng`` key, the JAX package's own ``jax.random``
+draws, on the points' device and without a host read (a captured CUDA graph
+runs it); :func:`score_pairs` scores any given pairs. The reference ships the
+filter disabled (``&& false``, corner_detector.cpp:366), and so does the
+track handler.
 """
 
 from __future__ import annotations
@@ -18,18 +18,23 @@ from __future__ import annotations
 import torch
 
 from msckf_mono_tpu_torch.core.window import stable_order
-from msckf_mono_tpu_torch.utils import quat
+from msckf_mono_tpu_torch.utils import prng, quat
 
 
-def sample_pairs(valid, generator: torch.Generator, num_iters: int = 300):
-    """Index pairs (i1, i2) (num_iters,) of two distinct valid points each
-    (of n >= 2 valid points: a uniform first rank, then an offset in
-    [1, n - 2], as the JAX package draws them). valid: (F,) bool."""
-    n = torch.clamp(torch.sum(valid), min=2)
+def sample_pairs(valid, key, num_iters: int = 300, int_bits: int = 32):
+    """Index pairs (i1, i2) (num_iters,) of two distinct valid points each,
+    as the JAX package draws them (ransac.py:44-49): of n = max(n_valid, 2)
+    valid points, a uniform first rank and an offset in [1, n - 2].
+    valid: (F,) bool; ``int_bits``: the width of JAX's default int (32, or
+    64 under x64)."""
+    k1, k2 = prng.split(key.to(valid.device))
     pool = stable_order(~valid)                                     # valid first
-    u = torch.rand((2, num_iters), generator=generator, dtype=torch.float64).to(valid.device)
-    r1 = torch.floor(u[0] * n).long()
-    off = 1 + torch.floor(u[1] * torch.clamp(n - 2, min=1)).long()
+    n = torch.clamp(torch.sum(valid), min=2)
+    # randint(k1, .., 0, n) and randint(k2, .., 1, max(n - 1, 1)) in one call
+    draws = prng.randint(torch.stack([k1, k2]), (num_iters,),
+                         torch.stack([torch.zeros_like(n), torch.ones_like(n)])[:, None],
+                         torch.stack([n, torch.clamp(n - 1, min=1)])[:, None], int_bits)
+    r1, off = draws[0], draws[1]
     return pool[r1], pool[(r1 + off) % n]
 
 
@@ -60,11 +65,16 @@ def score_pairs(dR, old_pts, new_pts, valid, i1, i2, threshold: float = 2e-7):
     err = num / torch.clamp(den, min=1e-30)
     inliers = (err < threshold) & valid & ok[:, None]
     best = torch.argmax(torch.sum(inliers, dim=-1))
-    return torch.where(torch.sum(valid) < 5, valid, inliers[best])
+    # index_select keeps the row choice on the device (a 0-d index reads it)
+    return torch.where(torch.sum(valid) < 5, valid, inliers.index_select(0, best[None])[0])
 
 
-def two_point_ransac(dR, old_pts, new_pts, valid, generator: torch.Generator,
-                     threshold: float = 2e-7, num_iters: int = 300):
-    """:func:`sample_pairs` then :func:`score_pairs`; returns the inlier mask (F,)."""
-    i1, i2 = sample_pairs(valid, generator, num_iters)
+def two_point_ransac(dR, old_pts, new_pts, valid, key, threshold: float = 2e-7,
+                     num_iters: int = 300):
+    """:func:`sample_pairs` then :func:`score_pairs`; returns the inlier mask (F,).
+
+    The pairs are drawn with JAX's default int for ``dR``'s dtype: 64 bits
+    in float64 (which JAX runs only under x64), 32 otherwise."""
+    int_bits = 64 if dR.dtype == torch.float64 else 32
+    i1, i2 = sample_pairs(valid, key, num_iters, int_bits)
     return score_pairs(dR, old_pts, new_pts, valid, i1, i2, threshold)

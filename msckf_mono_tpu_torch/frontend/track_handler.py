@@ -28,8 +28,9 @@ The tensors one frame hands to the next are :meth:`TrackHandler.carry`
 captures a frame's device work (``_ingest`` -> :meth:`tracked_features` ->
 :meth:`new_features`) in a CUDA graph over that carry once the handler
 holds an image and its pyramid (:meth:`TrackHandler.graphable`): from the
-second image on, and never with RANSAC on, whose samples come from a CPU
-``torch.Generator``.
+second image on, RANSAC on or off. RANSAC's hypothesis pairs come from a
+device key in the carry, split each frame that has features to track, as the
+JAX package splits its ``jax.random`` key (track_handler.py:174).
 """
 
 from __future__ import annotations
@@ -39,7 +40,7 @@ import torch
 
 from msckf_mono_tpu_torch.frontend import detect, klt, ransac, undistort
 from msckf_mono_tpu_torch.frontend.functional import _cells, _grid_dedup, _take
-from msckf_mono_tpu_torch.utils import quat
+from msckf_mono_tpu_torch.utils import prng, quat
 
 
 class TrackHandler:
@@ -84,7 +85,7 @@ class TrackHandler:
         self._prev_pyr = None
         self._cur_pyr = None
         self._next_id = torch.zeros((1,), dtype=torch.int32, device=self.device)
-        self._generator = torch.Generator().manual_seed(0)
+        self._key = prng.PRNGKey(0, device=self.device)
 
         self.prev_pts, self.prev_ids, self.prev_valid = self._empty()
         self.cur_pts, self.cur_ids, self.cur_valid = self._empty()
@@ -136,8 +137,8 @@ class TrackHandler:
 
     def graphable(self) -> bool:
         """Whether the next frame's device work can be one captured graph:
-        the handler holds an image and its pyramid, and RANSAC is off."""
-        return self.cur_img is not None and self._cur_pyr is not None and not self.use_ransac
+        the handler holds an image and its pyramid."""
+        return self.cur_img is not None and self._cur_pyr is not None
 
     # ---- gyro warp (corner_detector.cpp:215-276) ----
 
@@ -234,8 +235,12 @@ class TrackHandler:
         if self.use_ransac:
             prev_n = self._undistort(self.prev_pts)
             cur_n = self._undistort(pts)
+            # the JAX package splits its key only on a frame with features to
+            # track (it returns early on the others)
+            key, sub = prng.split(self._key)
+            self._key = torch.where(torch.any(self.prev_valid), key, self._key)
             status = status & ransac.two_point_ransac(
-                self.dR, prev_n[0], cur_n[0], status[0], self._generator, self.ransac_threshold,
+                self.dR, prev_n[0], cur_n[0], status[0], sub, self.ransac_threshold,
             )[None]
 
         self.cur_pts = pts
@@ -295,7 +300,8 @@ class TrackHandler:
             out[k] = None if img is None else img.detach().cpu().numpy().copy()
         out.update(prev_time=self.prev_time, cur_time=self.cur_time,
                    next_feature_id=self.next_feature_id, n_gyro=self.n_gyro,
-                   gyro_accum=self._gyro_sum.cpu().numpy().copy())
+                   gyro_accum=self._gyro_sum.cpu().numpy().copy(),
+                   key=self._key.cpu().numpy().copy())
         return out
 
     def state_from_numpy(self, arrays: dict):
@@ -318,11 +324,12 @@ class TrackHandler:
                                     device=self.device)
         self._gyro_sum = torch.as_tensor(np.asarray(arrays["gyro_accum"], np.float64),
                                          device=self.device)
+        self._key = torch.as_tensor(np.asarray(arrays["key"], np.int64), device=self.device)
 
 
 CARRY = ("prev_img", "cur_img", "_cur_pyr", "prev_pts", "prev_ids", "prev_valid", "cur_pts",
          "cur_ids", "cur_valid", "new_pts", "new_ids", "new_valid", "_next_id", "_gyro_sum",
-         "_gyro_n", "dR")
+         "_gyro_n", "dR", "_key")
 
 
 def _occupancy(pts, valid, H, W, n_rows, n_cols):

@@ -23,12 +23,13 @@ buffers and copied to the device without blocking. From the second image on,
 the frame's device work (the gyro readings into the tracker, the tracker,
 the filter step, and its outputs packed for the copy back) replays one
 captured CUDA graph (``ops/cuda_graph.StepGraph``; JAX jits the step at
-``msckf_mono_tpu/interface.py:101``); the first frame, frames after
-:meth:`TrackHandler.clear_tracks` or a state restore, frames with RANSAC on,
-and every frame under ``cuda_graph.disabled()`` run the same function
-eagerly. The rare frame with more readings than one IMU block propagates
-the earlier blocks eagerly first. :meth:`VioInterface.finish` replays the
-graphed ``core/filter.finish``.
+``msckf_mono_tpu/interface.py:101``), two-point RANSAC on or off (its
+hypothesis pairs are drawn on the device from a key in the tracker's carry);
+the first frame, frames after :meth:`TrackHandler.clear_tracks` or a state
+restore, and every frame under ``cuda_graph.disabled()`` run the same
+function eagerly. The rare frame with more readings than one IMU block
+propagates the earlier blocks eagerly first. :meth:`VioInterface.finish`
+replays the graphed ``core/filter.finish``.
 
 The filter state (``state``) and the tracker's tensors then live in the
 graph's buffers, which the next frame updates in place: copy what must
@@ -379,9 +380,10 @@ class LiveFrame:
     A call stages the host inputs (pinned on the card) and runs
     :meth:`frame` on the device: from a captured CUDA graph, one for each
     image shape and dtype, when the tracker is :meth:`TrackHandler.graphable`
-    and ``cuda_graph`` is enabled, else eagerly. It returns the new state
-    (the graph's buffers, updated in place by the next call) and the frame's
-    outputs packed for one copy back (:func:`frame_outputs` order).
+    (RANSAC on or off) and ``cuda_graph`` is enabled, else eagerly. It
+    returns the new state (the graph's buffers, updated in place by the next
+    call) and the frame's outputs packed for one copy back
+    (:func:`frame_outputs` order).
     """
 
     def __init__(self, config: MsckfConfig, track_handler: TrackHandler, dtype=torch.float32,

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import threading
 
 import torch
@@ -149,6 +150,16 @@ def warm_up(fn, args, counters=LAUNCH_COUNTERS):
         torch.cuda.current_stream(cuda[0].device).wait_stream(side)
 
 
+def _release_generator(device):
+    """Take the device's default generator out of capture mode after a
+    capture that failed: the failed capture never ran its epilogue, and
+    every later random draw on the device would raise. A capture that
+    succeeds runs prologue and epilogue again."""
+    buf = torch.zeros((), device=device)
+    with torch.cuda.graph(torch.cuda.CUDAGraph(), stream=torch.cuda.Stream(device)):
+        buf.add_(1)
+
+
 # ---- the captured step ----
 
 class StepGraph:
@@ -222,9 +233,23 @@ class StepGraph:
                     self.counters)
             side = torch.cuda.Stream(dev)
             self.graph = torch.cuda.CUDAGraph()
-            with counted_apart(self.counters) as delta:
-                with torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
-                    self._y = self._body()
+            # A graph that the cyclic collector frees during the capture (a
+            # dropped step's graph in a reference cycle) would invalidate
+            # it: CUDAGraph.reset is not permitted while a stream captures.
+            collect = gc.isenabled()
+            gc.disable()
+            try:
+                with counted_apart(self.counters) as delta:
+                    with torch.cuda.graph(self.graph, stream=side,
+                                          capture_error_mode="thread_local"):
+                        self._y = self._body()
+            except BaseException:
+                self.graph = None
+                _release_generator(dev)
+                raise
+            finally:
+                if collect:
+                    gc.enable()
         self.delta = delta
 
     def __call__(self, carry, *xs):

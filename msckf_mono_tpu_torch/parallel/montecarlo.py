@@ -2,10 +2,11 @@
 
 The batched-filter axis is fed by perturbing the initial IMU state and
 biases; each perturbation is an independent filter sharing the same sensor
-stream. Random numbers come from an explicit ``torch.Generator`` (on the
-CPU, so a seed gives the same fleet on every device); they are not the JAX
-package's ``jax.random`` draws. :func:`make_grid_fleet` adds a per-filter
-noise-parameter grid on top.
+stream. The perturbations are the JAX package's own draws: ``jax.random``'s
+threefry2x32 normals from a key (``utils/prng``), drawn on the CPU in the
+fleet's dtype and then moved to the fleet's device, so a key gives the same
+fleet on every device and filter i's start does not depend on the fleet
+size. :func:`make_grid_fleet` adds a per-filter noise-parameter grid on top.
 """
 
 from __future__ import annotations
@@ -13,13 +14,13 @@ from __future__ import annotations
 import torch
 
 from msckf_mono_tpu_torch.core.types import FilterState, ImuState, init_filter_state
-from msckf_mono_tpu_torch.utils import quat
+from msckf_mono_tpu_torch.utils import prng, quat
 from msckf_mono_tpu_torch.utils.config import MsckfConfig
 
 
 def perturb_imu_state(
     imu: ImuState,
-    generator: torch.Generator,
+    key,
     n: int,
     sigma_p: float = 0.0,
     sigma_v: float = 0.05,
@@ -27,18 +28,20 @@ def perturb_imu_state(
     sigma_bg: float = 1e-3,
     sigma_ba: float = 1e-2,
 ) -> ImuState:
-    """n perturbed copies of a one-filter ``imu`` (batch 1) -> batch n."""
+    """n perturbed copies of a one-filter ``imu`` (batch 1) -> batch n;
+    ``key`` is a ``prng`` key."""
     dtype = imu.p_I_G.dtype
     dev = imu.p_I_G.device
+    keys = prng.split(torch.as_tensor(key, device="cpu"), 5)
 
-    def noise(sigma):
-        draw = torch.randn((n, 3), generator=generator, dtype=torch.float64)
-        return (draw * sigma).to(dtype=dtype, device=dev)
+    def noise(k, sigma):
+        return (prng.normal(k, (n, 3), dtype) * sigma).to(dev)
 
     def b(x):
         return x.expand((n,) + tuple(x.shape[1:]))
 
-    dp, dv, dth, dbg, dba = (noise(s) for s in (sigma_p, sigma_v, sigma_theta, sigma_bg, sigma_ba))
+    dp, dv, dth, dbg, dba = (noise(k, s) for k, s in
+                             zip(keys, (sigma_p, sigma_v, sigma_theta, sigma_bg, sigma_ba)))
     dq = quat.build_update_quat(dth)
     q = quat.mul(dq, b(imu.q_IG))
     v = b(imu.v_I_G) + dv
@@ -49,20 +52,20 @@ def perturb_imu_state(
     )
 
 
-def make_fleet(config: MsckfConfig, imu: ImuState, n: int, generator: torch.Generator | None = None,
+def make_fleet(config: MsckfConfig, imu: ImuState, n: int, key=None,
                dtype=torch.float32, device="cuda", **sigmas) -> FilterState:
-    """n independent filter instances with perturbed inits, on ``device``."""
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
+    """n independent filter instances with perturbed inits, on ``device``;
+    ``key=None`` is ``prng.PRNGKey(0)``, the JAX package's default."""
+    if key is None:
+        key = prng.PRNGKey(0)
     imu = type(imu)(**{k: v.to(device=device, dtype=dtype) for k, v in vars(imu).items()})
-    return init_filter_state(config, perturb_imu_state(imu, generator, n, **sigmas),
+    return init_filter_state(config, perturb_imu_state(imu, key, n, **sigmas),
                              dtype=dtype, device=device)
 
 
-def make_grid_fleet(config: MsckfConfig, imu: ImuState, n: int,
-                    generator: torch.Generator | None = None, dtype=torch.float32,
-                    device="cuda", q_imu_scale=None, meas_sigma_px=None,
-                    **sigmas) -> FilterState:
+def make_grid_fleet(config: MsckfConfig, imu: ImuState, n: int, key=None,
+                    dtype=torch.float32, device="cuda", q_imu_scale=None,
+                    meas_sigma_px=None, **sigmas) -> FilterState:
     """A fleet spanning a noise-parameter grid on top of the Monte-Carlo
     init perturbations.
 
@@ -72,7 +75,7 @@ def make_grid_fleet(config: MsckfConfig, imu: ImuState, n: int,
     meas_sigma_px: (n,) per-filter feature-noise sigma in pixels, converted
     by (px / f_u)² (ros_interface.cpp:313-314).
     """
-    fleet = make_fleet(config, imu, n, generator, dtype=dtype, device=device, **sigmas)
+    fleet = make_fleet(config, imu, n, key, dtype=dtype, device=device, **sigmas)
     if q_imu_scale is not None:
         scale = torch.as_tensor(q_imu_scale, dtype=dtype, device=device)[:, None]
         fleet = fleet.replace(q_imu_diag=fleet.q_imu_diag * scale)

@@ -94,10 +94,12 @@ def run_fleet(mesh, batch: int, frames: int, ckpt: str) -> dict:
     bframes = montecarlo.broadcast_frames(
         synthetic.to_frame_inputs(seq, torch.float32, device=device), batch)
 
-    def fleet():    # drawn once for the whole fleet, then split: filter k is one draw everywhere
+    # drawn once for the whole fleet, then split: filter k is one draw
+    # everywhere (key 0's draws do not depend on the fleet size either, so a
+    # shard's rows equal the whole fleet's)
+    def fleet():
         return sharding.shard_batch(montecarlo.make_fleet(
-            cfg, imu, batch, torch.Generator().manual_seed(0), dtype=torch.float32,
-            device=device), mesh)
+            cfg, imu, batch, dtype=torch.float32, device=device), mesh)
 
     def first(n):
         return tree_map(lambda x: x[:n], bframes)

@@ -8,6 +8,11 @@
 on the tiny shapes of __graft_entry__._tiny_config() and on a 22-slot variant
 in which the 20-state redundant prune runs. Plus the state carried across
 mid-sequence, fleets, padded frames and the entry points' default device.
+
+``make_fleet`` draws the JAX package's fleet: against JAX's ``make_fleet``
+(key 0) at n in {1, 3, 1024}, every ImuState field within 4·eps of each
+vector's largest component (f32; the normals' ``log1p`` is torch's) or
+1e-12 (f64), and filter i is bit-equal at n = 3 and n = 1024.
 """
 
 import inspect
@@ -22,6 +27,7 @@ from msckf_mono_tpu.core import filter as jfilter
 from msckf_mono_tpu.core.init import ground_truth_init as j_gt_init
 from msckf_mono_tpu.core.types import init_filter_state as j_init_state
 from msckf_mono_tpu.data import synthetic as jsyn
+from msckf_mono_tpu.parallel import montecarlo as jmc
 from msckf_mono_tpu.parallel import sharding as jsharding
 from msckf_mono_tpu_torch.core import filter as tfilter
 from msckf_mono_tpu_torch.core import init as tinit
@@ -32,6 +38,7 @@ from msckf_mono_tpu_torch.parallel import montecarlo as tmc
 from msckf_mono_tpu_torch.parallel import sharding as tsharding
 from msckf_mono_tpu_torch.frontend.track_handler import TrackHandler
 from msckf_mono_tpu_torch.interface import LiveFrame, VioInterface
+from msckf_mono_tpu_torch.utils import prng
 
 from tests import _torch_port as tp
 
@@ -125,8 +132,8 @@ def test_mid_sequence_state_carries_across_exactly(small_f64):
 def test_fleet_runs_each_filter_independently(small_f64):
     _, tc, _, tseq = small_f64
     imu = tinit.ground_truth_init(**tp.INIT, b_g=tseq.b_g, b_a=tseq.b_a, dtype=torch.float64, device="cpu")
-    fleet = tmc.make_fleet(tc, imu, 3, torch.Generator().manual_seed(7), dtype=torch.float64, device="cpu")
-    again = tmc.make_fleet(tc, imu, 3, torch.Generator().manual_seed(7), dtype=torch.float64, device="cpu")
+    fleet = tmc.make_fleet(tc, imu, 3, prng.PRNGKey(7), dtype=torch.float64, device="cpu")
+    again = tmc.make_fleet(tc, imu, 3, prng.PRNGKey(7), dtype=torch.float64, device="cpu")
     assert torch.equal(fleet.imu.q_IG, again.imu.q_IG) and torch.equal(fleet.imu.v_I_G, again.imu.v_I_G)
     assert not torch.equal(fleet.imu.v_I_G[0], fleet.imu.v_I_G[1])
     frames = ttypes.tree_map(lambda x: x[:16], tsyn.to_frame_inputs(tseq, torch.float64, device="cpu"))
@@ -143,6 +150,29 @@ def test_fleet_runs_each_filter_independently(small_f64):
     want = jsharding.fleet_metrics(tp.jax_state(filter_state_to_numpy(final), jc_for(tc), jnp.float64))
     for k, v in want.items():
         np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-12, err_msg=k)
+
+
+@pytest.mark.parametrize("n", [1, 3, 1024])
+@pytest.mark.parametrize("jdtype", [jnp.float32, jnp.float64])
+def test_make_fleet_matches_jax(small_f64, jdtype, n):
+    jc, tc, jseq, tseq = small_f64
+    want = jmc.make_fleet(jc, j_gt_init(**tp.INIT, b_g=jseq.b_g, b_a=jseq.b_a, dtype=jdtype), n,
+                          dtype=jdtype).imu
+    imu = tinit.ground_truth_init(**tp.INIT, b_g=tseq.b_g, b_a=tseq.b_a, dtype=tp.tdtype(jdtype),
+                                  device="cpu")
+    got = tmc.make_fleet(tc, imu, n, dtype=tp.tdtype(jdtype), device="cpu").imu
+    eps = float(jnp.finfo(jdtype).eps)
+    for k, w in vars(want).items():
+        g, w = getattr(got, k).numpy().astype(np.float64), np.asarray(w).astype(np.float64)
+        assert g.shape == w.shape, k
+        if jdtype == jnp.float32:
+            assert np.all(np.abs(g - w) <= 4 * eps * np.maximum(np.abs(w), np.abs(w).max(-1, keepdims=True))), k
+        else:
+            np.testing.assert_allclose(g, w, rtol=0, atol=1e-12, err_msg=k)
+    if n == 1024:       # filter i does not depend on the fleet size
+        three = tmc.make_fleet(tc, imu, 3, dtype=tp.tdtype(jdtype), device="cpu").imu
+        for k, v in vars(three).items():
+            assert torch.equal(v, getattr(got, k)[:3]), k
 
 
 def jc_for(tc):

@@ -7,7 +7,8 @@ replays, so these tests check that logic here:
 * the static-buffer runner equals the eager run (``cuda_graph.disabled()``)
   bit for bit: ``run_sequence`` (f64 strict and f32 serving, 2 filters),
   ``run_images`` with a shared camera (Bi = 1) and with Bi = B streams, and
-  the live ``VioInterface`` frame loop with ``finish()``;
+  the live ``VioInterface`` frame loop with ``finish()``, two-point RANSAC
+  off and on (its key in the graph's carry);
 * a step whose new carry passes a field through, swaps two fields and
   returns a view of an input equals its eager loop;
 * the port's ``batched_step`` and ``make_jitted_step`` against JAX's
@@ -40,6 +41,7 @@ from msckf_mono_tpu_torch.frontend import functional as tfunc
 from msckf_mono_tpu_torch.ops import cuda_graph
 from msckf_mono_tpu_torch.parallel import montecarlo as tmc
 from msckf_mono_tpu_torch.parallel import sharding as tsharding
+from msckf_mono_tpu_torch.utils import prng
 
 from tests import _torch_port as tp
 from tests.test_torch_live import SMALL_CAMERA, TH_KW, _drive, _live_configs, _world, small_configs
@@ -68,7 +70,7 @@ def _filter_configs(serving):
 
 def _fleet(tc, seq, dtype, B=2):
     imu = ground_truth_init(**tp.INIT, b_g=seq.b_g, b_a=seq.b_a, dtype=dtype, device="cpu")
-    return tmc.make_fleet(tc, imu, B, torch.Generator().manual_seed(1), dtype=dtype, device="cpu")
+    return tmc.make_fleet(tc, imu, B, prng.PRNGKey(1), dtype=dtype, device="cpu")
 
 
 @pytest.mark.parametrize("dtype,serving", [(torch.float64, False), (torch.float32, True)],
@@ -131,12 +133,14 @@ def test_run_images_replay_equals_eager(small_world, shared):
     assert int(got[1].valid.sum()) > 0
 
 
-def test_live_frame_loop_replay_equals_eager(small_world):
+@pytest.mark.parametrize("use_ransac", [False, True], ids=["ransac-off", "ransac-on"])
+def test_live_frame_loop_replay_equals_eager(small_world, use_ransac):
     tc, seq, imgs = small_world
 
     def run(eager):
         vio = tint.VioInterface(tc, dtype=torch.float64, keep_visualizer=True,
-                                track_handler_kwargs=TH_KW, device="cpu")
+                                track_handler_kwargs=dict(TH_KW, use_ransac=use_ransac),
+                                device="cpu")
         vio.initialize_from_ground_truth(**tp.INIT, b_g=seq.b_g, b_a=seq.b_a)
         states = []
         with cuda_graph.disabled() if eager else contextlib.nullcontext():

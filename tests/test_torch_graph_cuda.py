@@ -18,11 +18,15 @@ same inputs, f32:
 * ``batched_step`` and ``make_jitted_step`` replay their eager step;
 * launch counts are exact after replays (the captured count added once a
   replay), and warm-up leaves them as they were;
-* a capture of an operation that synchronizes with the host raises.
+* a capture of an operation that synchronizes with the host raises, and
+  leaves the device's default generator usable;
+* a dropped graph in a reference cycle, freed by the cyclic collector,
+  does not invalidate another graph's capture.
 """
 
 import contextlib
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -91,8 +95,7 @@ def test_filter_path_replay_equals_eager(card):
     seq = synthetic.generate(cfg, n_frames=T, seed=0, pixel_noise=0.5)
     imu = ground_truth_init(**INIT, b_g=seq.b_g, b_a=seq.b_a, dtype=torch.float32, device=card)
     frames = montecarlo.broadcast_frames(synthetic.to_frame_inputs(seq, torch.float32, device=card), B)
-    make = lambda: montecarlo.make_fleet(cfg, imu, B, torch.Generator().manual_seed(0),
-                                         dtype=torch.float32, device=card)
+    make = lambda: montecarlo.make_fleet(cfg, imu, B, dtype=torch.float32, device=card)
     before = counts()
     got = tfilter.run_sequence(make(), frames, cfg)
     assert counts()[2] - before[2] == 2 * T
@@ -139,8 +142,7 @@ def test_image_path_replay_equals_eager(card):
     run = pipeline.batched_run_images_shared(cfg, fcfg)
 
     def make():
-        return (montecarlo.make_fleet(cfg, imu, B, torch.Generator().manual_seed(0),
-                                      dtype=torch.float32, device=card),
+        return (montecarlo.make_fleet(cfg, imu, B, dtype=torch.float32, device=card),
                 functional.init_frontend_state(480, 752, fcfg, B, 1, torch.float32, device=card))
 
     before = counts()
@@ -220,3 +222,35 @@ def test_capture_of_a_sync_raises(card):
         cuda_graph.StepGraph(fn, (), (x,))
     torch.cuda.synchronize()
     assert float((x * 2).sum()) == 16.0            # the card still works
+    # and so does its default generator, which the failed capture had held
+    assert torch.rand(4, device=card).shape == (4,)
+
+
+def test_capture_survives_the_cyclic_collector(card):
+    x = torch.ones(8, device=card)
+
+    class Holder:
+        pass
+
+    held = [cuda_graph.StepGraph(lambda c, v: (c, v * 2), (), (x,))]
+    calls = []
+
+    def fn(c, v):
+        calls.append(None)
+        if len(calls) == 2:                  # the capture (the first call warms up)
+            h = Holder()                     # a new cycle, the dropped graph's only owner
+            h.graph, h.cycle = held.pop(), h
+            del h
+            for _ in range(100):
+                [[]]                         # allocations that let the collector run
+        return c, v + 1
+
+    threshold = gc.get_threshold()
+    gc.set_threshold(1, 1, 1)                # a collection at every allocation
+    try:
+        g = cuda_graph.StepGraph(fn, (), (x,))
+    finally:
+        gc.set_threshold(*threshold)
+    gc.collect()
+    _, y = g((), x)
+    assert len(calls) == 2 and float(y.sum()) == 16.0

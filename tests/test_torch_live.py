@@ -7,10 +7,15 @@ package's) at a small camera, 188 x 120 with the EuRoC intrinsics scaled by
 1/4. Tolerances:
 
 * RANSAC scoring on the JAX package's own sampled pairs: inlier masks equal;
+* ``two_point_ransac`` on a key against the JAX package's on the same key,
+  at F = 128 with 0, 3, 5, 40 and 128 valid points, f32 (JAX with x64 off,
+  32-bit draws) and f64 (x64 on, 64-bit draws): sampled pairs and inlier
+  masks equal;
 * ``TrackVisualizer.draw``: pixel-equal;
 * ``TrackHandler`` over 12 frames: f64 ids, valid flags and next_feature_id
   equal every frame, uv within 1e-9; f32 the same discrete outputs, uv
-  within 1e-4;
+  within 1e-4; with RANSAC on over 20 frames in f64, the same (the carried
+  key included);
 * ``VioInterface`` at the tiny filter shapes of tests/_torch_port.py, f64,
   crossing ``max_cam_states`` so the pruned-pose archive fires, then
   ``finish()``: odometry within 1e-6 m every frame; cam_states, the
@@ -36,6 +41,7 @@ from msckf_mono_tpu_torch.frontend import ransac as transac
 from msckf_mono_tpu_torch.frontend import track_handler as tth
 from msckf_mono_tpu_torch.frontend import visualize as tvis
 from msckf_mono_tpu_torch.utils import config as tcfg
+from msckf_mono_tpu_torch.utils import prng
 
 from tests import _torch_port as tp
 
@@ -46,6 +52,7 @@ SMALL_CAMERA = dict(f_u=_cam0.f_u / 4, f_v=_cam0.f_v / 4, c_u=_cam0.c_u / 4, c_v
 TH_KW = dict(max_features=16, window_size=21, max_level=3)
 N_TH_FRAMES = 12
 N_LIVE_FRAMES = 14
+N_RANSAC_FRAMES = 20
 
 
 def small_configs(filter_kw=None, shapes_kw=None):
@@ -71,9 +78,8 @@ def _K(cam):
 
 # ---- RANSAC ----
 
-def _ransac_inputs(seed):
+def _ransac_inputs(seed, F=40):
     rng = np.random.default_rng(seed)
-    F = 40
     ang = 0.02
     dR = np.array([[np.cos(ang), -np.sin(ang), 0], [np.sin(ang), np.cos(ang), 0], [0, 0, 1.0]])
     t = np.array([0.3, -0.1, 0.05])
@@ -117,16 +123,39 @@ def test_ransac_scoring_matches_jax_on_its_pairs(seed, n_valid):
 
 def test_ransac_sampler_finds_the_outliers():
     dR, old, new, valid = _ransac_inputs(0)
-    gen = torch.Generator().manual_seed(0)
-    i1, i2 = transac.sample_pairs(torch.as_tensor(valid), gen)
+    i1, i2 = transac.sample_pairs(torch.as_tensor(valid), prng.PRNGKey(0))
     assert bool(torch.all(i1 != i2)) and bool(torch.all(torch.as_tensor(valid)[i1]))
     assert bool(torch.all(torch.as_tensor(valid)[i2]))
     got = transac.two_point_ransac(torch.as_tensor(dR), torch.as_tensor(old), torch.as_tensor(new),
-                                   torch.as_tensor(valid), torch.Generator().manual_seed(0)).numpy()
+                                   torch.as_tensor(valid), prng.PRNGKey(0)).numpy()
     outlier = np.zeros_like(valid)
     outlier[::7] = True
     assert not np.any(got & outlier)
     assert got.sum() >= 0.9 * (valid & ~outlier).sum()
+
+
+@pytest.mark.parametrize("n_valid", [0, 3, 5, 40, 128])
+@pytest.mark.parametrize("bits", [32, 64], ids=["f32", "f64"])
+def test_two_point_ransac_matches_jax_on_a_key(bits, n_valid):
+    F = 128
+    dR, old, new, _ = _ransac_inputs(n_valid, F)
+    valid = np.zeros(F, bool)
+    valid[np.random.default_rng(F + n_valid).permutation(F)[:n_valid]] = True
+    np_dtype, tdtype = (np.float32, torch.float32) if bits == 32 else (np.float64, torch.float64)
+    args = [x.astype(np_dtype) for x in (dR, old, new)]
+    with jax.enable_x64(bits == 64):
+        key = jax.random.PRNGKey(n_valid)
+        want = np.asarray(jransac.two_point_ransac(*map(jnp.asarray, args), jnp.asarray(valid), key))
+        w1, w2 = _jax_pairs(valid, key)
+    tkey = prng.PRNGKey(n_valid)
+    targs = [torch.as_tensor(x) for x in args] + [torch.as_tensor(valid)]
+    i1, i2 = transac.sample_pairs(targs[-1], tkey, int_bits=bits)
+    np.testing.assert_array_equal(i1.numpy(), w1)
+    np.testing.assert_array_equal(i2.numpy(), w2)
+    got = transac.two_point_ransac(*targs, tkey).numpy()
+    np.testing.assert_array_equal(got, want)
+    if n_valid >= 40:
+        assert 0 < want.sum() < n_valid
 
 
 # ---- TrackHandler ----
@@ -143,9 +172,10 @@ def th_world():
     return tc, seq, imgs, gyro
 
 
-def _run_jax_th(tc, seq, imgs, gyro, dtype):
+def _run_jax_th(tc, seq, imgs, gyro, dtype, **kw):
     cam = tc.camera
-    th = jth.TrackHandler(_K(cam), cam.distortion_coeffs, cam.distortion_model, dtype=dtype, **TH_KW)
+    th = jth.TrackHandler(_K(cam), cam.distortion_coeffs, cam.distortion_model, dtype=dtype,
+                          **TH_KW, **kw)
     out = []
     for i, img in enumerate(imgs):
         for g in gyro[i]:
@@ -154,7 +184,8 @@ def _run_jax_th(tc, seq, imgs, gyro, dtype):
         t = th.tracked_features()
         n = th.new_features()
         out.append(dict(tracked=[np.asarray(x) for x in t], new=[np.asarray(x) for x in n],
-                        next_id=th.next_feature_id, cur_pts=np.asarray(th.cur_pts)))
+                        next_id=th.next_feature_id, cur_pts=np.asarray(th.cur_pts),
+                        key=np.asarray(th._key).astype(np.int64)))
     return out, th
 
 
@@ -167,11 +198,16 @@ def jax_th_runs(th_world):
 @pytest.mark.parametrize("jdtype,tol", [(jnp.float64, 1e-9), (jnp.float32, 1e-4)])
 def test_track_handler_matches_jax(th_world, jax_th_runs, jdtype, tol):
     tc, seq, imgs, gyro = th_world
+    _check_track_handler(tc, seq, imgs, gyro, jax_th_runs[jdtype], tp.tdtype(jdtype), tol)
+
+
+def _check_track_handler(tc, seq, imgs, gyro, jax_run, dtype, tol, **kw):
+    """The port's TrackHandler over ``imgs`` against a ``_run_jax_th`` run."""
     cam = tc.camera
     th = tth.TrackHandler(_K(cam), cam.distortion_coeffs, cam.distortion_model,
-                          dtype=tp.tdtype(jdtype), device=CPU, **TH_KW)
+                          dtype=dtype, device=CPU, **TH_KW, **kw)
     tracked_any = 0
-    for i, (img, want) in enumerate(zip(imgs, jax_th_runs[jdtype])):
+    for i, (img, want) in enumerate(zip(imgs, jax_run)):
         th.add_gyro_reading(gyro[i])
         th.set_current_image(img, float(seq.time[i]))
         t = th.tracked_features()
@@ -185,8 +221,30 @@ def test_track_handler_matches_jax(th_world, jax_th_runs, jdtype, tol):
         v = want["tracked"][2]
         np.testing.assert_allclose(th.cur_pts[0].numpy()[v], want["cur_pts"][v], rtol=0,
                                    atol=tol * 1e3)
+        np.testing.assert_array_equal(th._key.numpy(), want["key"], err_msg=f"frame {i} key")
         tracked_any += int(v.sum())
-    assert tracked_any > 5 * N_TH_FRAMES
+    assert tracked_any > 5 * len(imgs)
+
+
+@pytest.fixture(scope="module")
+def ransac_world():
+    _, tc = small_configs()
+    seq, imgs = _world(tc, N_RANSAC_FRAMES)
+    from msckf_mono_tpu_torch.utils import quat
+
+    q_CI = torch.as_tensor(tc.camera.q_CI, dtype=torch.float64)
+    gyro = quat.rotate(q_CI, torch.as_tensor(seq.imu_omega - seq.b_g)).numpy()
+    return tc, seq, imgs, gyro
+
+
+def test_track_handler_with_ransac_matches_jax(ransac_world):
+    """RANSAC on, f64: JAX's draws from the same carried key, track for track."""
+    tc, seq, imgs, gyro = ransac_world
+    want, _ = _run_jax_th(tc, seq, imgs, gyro, jnp.float64, use_ransac=True)
+    off, _ = _run_jax_th(tc, seq, imgs, gyro, jnp.float64)
+    # RANSAC dropped tracks, so the draws decided something
+    assert sum(int(a["tracked"][2].sum()) for a in want) < sum(int(a["tracked"][2].sum()) for a in off)
+    _check_track_handler(tc, seq, imgs, gyro, want, torch.float64, 1e-9, use_ransac=True)
 
 
 def test_track_handler_ransac_on_keeps_the_contract(th_world):

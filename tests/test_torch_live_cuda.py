@@ -13,7 +13,10 @@ imports neither JAX nor the JAX package:
 * ``VioInterface(device="cuda")`` over 30 rendered frames of the full camera
   against the port's own CPU run: the tracker's ids equal for the first 10
   frames (the differing-id count of all 30 is printed and must stay under
-  5% of the valid ids), positions finite and within 0.05 m of the CPU run's.
+  5% of the valid ids), positions finite and within 0.05 m of the CPU run's;
+* the same 30 frames with two-point RANSAC on: one replayed graph a frame
+  from the second image on, bit-equal (ids and positions) to the eager run
+  (``cuda_graph.disabled()``).
 """
 
 import numpy as np
@@ -23,7 +26,7 @@ import torch
 from msckf_mono_tpu_torch.data import render, synthetic
 from msckf_mono_tpu_torch.frontend import detect, klt
 from msckf_mono_tpu_torch.interface import VioInterface
-from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda, psd_cuda
+from msckf_mono_tpu_torch.ops import cuda_graph, fast_cuda, klt_cuda, psd_cuda
 from msckf_mono_tpu_torch.utils.chi2 import gate_threshold
 from msckf_mono_tpu_torch.utils.config import MsckfConfig
 
@@ -91,8 +94,8 @@ def test_klt_at_b1_f100_matches_plain(card, world):
         assert float(err.max()) <= 0.05, lvl
 
 
-def _run(device, cfg, seq, imgs):
-    vio = VioInterface(cfg, track_handler_kwargs=TH_KW, device=device)
+def _run(device, cfg, seq, imgs, **th_kw):
+    vio = VioInterface(cfg, track_handler_kwargs=dict(TH_KW, **th_kw), device=device)
     vio.initialize_from_ground_truth(p_I_G=[5.0, 0.0, 0.0], q_IG=[1, 0, 0, 0],
                                      v_I_G=[0.0, 5.0 * 0.35, 0.2 * 1.4], b_g=seq.b_g, b_a=seq.b_a)
     K = seq.imu_omega.shape[1]
@@ -104,13 +107,14 @@ def _run(device, cfg, seq, imgs):
         vio.image_callback(imgs[i], float(seq.time[i]))
         ids.append(vio.track_handler.cur_ids[0].cpu().numpy().copy())
         pos.append(vio.odometry()["p_I_G"])
-    return np.asarray(ids), np.asarray(pos)
+    replays = [g.replays for g in vio._live_frame.graphs.values()]
+    return np.asarray(ids), np.asarray(pos), replays
 
 
 def test_live_run_on_the_card_matches_the_cpu_run(card, world):
     cfg, seq, imgs = world
-    ids_gpu, pos_gpu = _run(card, cfg, seq, imgs)
-    ids_cpu, pos_cpu = _run("cpu", cfg, seq, imgs)
+    ids_gpu, pos_gpu, _ = _run(card, cfg, seq, imgs)
+    ids_cpu, pos_cpu, _ = _run("cpu", cfg, seq, imgs)
     np.testing.assert_array_equal(ids_gpu[:10], ids_cpu[:10])
     differ = int((ids_gpu != ids_cpu).sum())
     n_valid = int((ids_cpu >= 0).sum())
@@ -118,3 +122,14 @@ def test_live_run_on_the_card_matches_the_cpu_run(card, world):
     assert differ <= 0.05 * n_valid
     assert np.all(np.isfinite(pos_gpu))
     np.testing.assert_allclose(pos_gpu, pos_cpu, rtol=0, atol=0.05)
+
+
+def test_live_run_with_ransac_replays_the_eager_run(card, world):
+    cfg, seq, imgs = world
+    ids, pos, replays = _run(card, cfg, seq, imgs, use_ransac=True)
+    with cuda_graph.disabled():
+        ids_eager, pos_eager, eager_replays = _run(card, cfg, seq, imgs, use_ransac=True)
+    assert replays == [N_FRAMES - 1] and eager_replays == []
+    np.testing.assert_array_equal(ids, ids_eager)
+    np.testing.assert_array_equal(pos, pos_eager)
+    assert np.all(np.isfinite(pos)) and int((ids >= 0).sum()) > 0

@@ -34,6 +34,7 @@ from msckf_mono_tpu_torch.data import render as trender
 from msckf_mono_tpu_torch.data import synthetic as tsyn
 from msckf_mono_tpu_torch.frontend import functional as tfunc
 from msckf_mono_tpu_torch.parallel import montecarlo as tmc
+from msckf_mono_tpu_torch.utils import prng
 
 from tests import _torch_port as tp
 
@@ -190,8 +191,7 @@ def test_batched_runners_match_jax(world, shared):
     jc, tc = _configs(False)
     jfc, tfc = jfunc.FrontendConfig(**FRONTEND), tfunc.FrontendConfig(**FRONTEND)
     imu = tp.port_initial_state(tc, seq).imu
-    fleet = tmc.make_fleet(tc, imu, B, torch.Generator().manual_seed(3), dtype=torch.float64,
-                           device="cpu")
+    fleet = tmc.make_fleet(tc, imu, B, prng.PRNGKey(3), dtype=torch.float64, device="cpu")
     jstates = tp.jax_state(filter_state_to_numpy(fleet), jc, jnp.float64)
     jfs = jax.tree_util.tree_map(lambda x: jnp.broadcast_to(x, (B,) + x.shape),
                                  jfunc.init_frontend_state(H, W, jfc, jnp.float64))

@@ -65,8 +65,7 @@ def _fleet(card, n_frames=T):
     imu = ground_truth_init(**INIT, b_g=seq.b_g, b_a=seq.b_a, dtype=torch.float32, device=card)
     frames = montecarlo.broadcast_frames(
         synthetic.to_frame_inputs(seq, torch.float32, device=card), B)
-    make = lambda: montecarlo.make_fleet(cfg, imu, B, torch.Generator().manual_seed(0),
-                                         dtype=torch.float32, device=card)
+    make = lambda: montecarlo.make_fleet(cfg, imu, B, dtype=torch.float32, device=card)
     return cfg, frames, make
 
 
@@ -155,8 +154,7 @@ def test_default_tier_is_tf32_on_the_image_products_only(card):
 
     def go(fc):
         return pipeline.batched_run_images_shared(icfg, fc)(
-            montecarlo.make_fleet(icfg, imu, 16, torch.Generator().manual_seed(0),
-                                  dtype=torch.float32, device=card),
+            montecarlo.make_fleet(icfg, imu, 16, dtype=torch.float32, device=card),
             functional.init_frontend_state(480, 752, fc, 16, 1, torch.float32, device=card),
             iframes)
 
