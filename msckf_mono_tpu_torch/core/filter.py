@@ -10,6 +10,11 @@ force-residualization of every remaining track (msckf.h:765-807), a fixed
 number of passes; on the card both replay a captured CUDA graph
 (``ops/cuda_graph``), one replay a frame, and run eagerly under
 ``cuda_graph.disabled()``.
+
+Under a profiler, :func:`step` marks its stages (``eval/profile.stage``):
+``step.propagate``, ``step.augment``, ``step.tracks``, ``step.update`` (on
+the fused path ``update.rows``, ``update.ekf`` and ``update.post``; else
+``update.marginalize`` and ``update.prune``) and ``step.prune_empty``.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from msckf_mono_tpu_torch.core import augment, prune, tracks, update
 from msckf_mono_tpu_torch.core import propagate as propagate_mod
 from msckf_mono_tpu_torch.core.types import FilterState, StagedTracks, _Replace, tree_map, tree_where
 from msckf_mono_tpu_torch.core.window import gather_rows, stable_order
+from msckf_mono_tpu_torch.eval.profile import stage
 from msckf_mono_tpu_torch.ops import cuda_graph
 from msckf_mono_tpu_torch.utils.config import MsckfConfig
 
@@ -79,32 +85,39 @@ def step(state: FilterState, frame: FrameInput, config: MsckfConfig):
     state = prune.clear_frame_archive(state)
     state0 = state
 
-    state = propagate_block(state, frame, config)
-    state = augment.augment_state(state, frame.state_id, frame.time, config)
-    state, staged = tracks.update_tracks(
-        state, frame.tracked_uv, frame.tracked_ids, frame.tracked_valid, config
-    )
-    state = tracks.add_features(state, frame.new_uv, frame.new_ids, frame.new_valid, config)
-    if config.filter.fused_updates and config.filter.use_prune_redundant:
-        state = _fused_vision_update(state, staged, config)
-    else:
-        state = update.marginalize(state, staged, config)
-        if config.filter.use_prune_redundant:
-            state = prune.prune_redundant_states(state, config)
-    state = prune.prune_empty_states(state, config)
+    with stage("step.propagate"):
+        state = propagate_block(state, frame, config)
+    with stage("step.augment"):
+        state = augment.augment_state(state, frame.state_id, frame.time, config)
+    with stage("step.tracks"):
+        state, staged = tracks.update_tracks(
+            state, frame.tracked_uv, frame.tracked_ids, frame.tracked_valid, config
+        )
+        state = tracks.add_features(state, frame.new_uv, frame.new_ids, frame.new_valid, config)
+    with stage("step.update"):
+        if config.filter.fused_updates and config.filter.use_prune_redundant:
+            state = _fused_vision_update(state, staged, config)
+        else:
+            with stage("update.marginalize"):
+                state = update.marginalize(state, staged, config)
+            if config.filter.use_prune_redundant:
+                with stage("update.prune"):
+                    state = prune.prune_redundant_states(state, config)
+    with stage("step.prune_empty"):
+        state = prune.prune_empty_states(state, config)
 
-    # Padded frames leave the state untouched.
-    state = tree_where(frame.frame_valid, state, state0)
+        # Padded frames leave the state untouched.
+        state = tree_where(frame.frame_valid, state, state0)
 
-    out = FrameOutput(
-        p_I_G=state.imu.p_I_G,
-        q_IG=state.imu.q_IG,
-        v_I_G=state.imu.v_I_G,
-        b_g=state.imu.b_g,
-        b_a=state.imu.b_a,
-        cam_count=state.window.count,
-        num_residualized=state.num_residualized,
-    )
+        out = FrameOutput(
+            p_I_G=state.imu.p_I_G,
+            q_IG=state.imu.q_IG,
+            v_I_G=state.imu.v_I_G,
+            b_g=state.imu.b_g,
+            b_a=state.imu.b_a,
+            cam_count=state.window.count,
+            num_residualized=state.num_residualized,
+        )
     return state, out
 
 
@@ -123,28 +136,31 @@ def _fused_vision_update(state: FilterState, staged, config: MsckfConfig) -> Fil
     g = state.imu.g
     shp = config.shapes
 
-    p_f, track_ok, motion_ok, tri_ok = update.marginalize_prep(state, staged, config)
-    prep = prune.prune_prep(state, config)
+    with stage("update.rows"):
+        p_f, track_ok, motion_ok, tri_ok = update.marginalize_prep(state, staged, config)
+        prep = prune.prune_prep(state, config)
 
-    gate_m, present_m, carry = update.gated_row_stack(
-        staged.obs, staged.obs_mask, p_f, track_ok, window, g, state.P,
-        sigma2, config, m_cap=shp.marg_obs_cap or None, return_carry=True,
-    )
-    out = update.gated_row_stack(
-        prep["c_obs"], prep["c_mask_inv"], prep["p_use"], prep["use_track"],
-        window, g, state.P, sigma2, config,
-        m_cap=shp.prune_obs_cap or None, carry=carry,
-        chunk=shp.prune_chunk or None,
-    )
-    H, r, gate_p, present_p, n_dropped = out[:5]
-    state = update.measurement_update(state, H, r, sigma2, config, *out[5:])
+        gate_m, present_m, carry = update.gated_row_stack(
+            staged.obs, staged.obs_mask, p_f, track_ok, window, g, state.P,
+            sigma2, config, m_cap=shp.marg_obs_cap or None, return_carry=True,
+        )
+        out = update.gated_row_stack(
+            prep["c_obs"], prep["c_mask_inv"], prep["p_use"], prep["use_track"],
+            window, g, state.P, sigma2, config,
+            m_cap=shp.prune_obs_cap or None, carry=carry,
+            chunk=shp.prune_chunk or None,
+        )
+        H, r, gate_p, present_p, n_dropped = out[:5]
+    with stage("update.ekf"):
+        state = update.measurement_update(state, H, r, sigma2, config, *out[5:])
 
-    state = update.marginalize_post(
-        state, staged, p_f, track_ok, motion_ok, tri_ok,
-        gate_m, present_m, n_dropped, config,
-    )
-    # row_overflow already counted once in marginalize_post.
-    return prune.prune_post(state, prep, gate_p, torch.zeros_like(n_dropped), config)
+    with stage("update.post"):
+        state = update.marginalize_post(
+            state, staged, p_f, track_ok, motion_ok, tri_ok,
+            gate_m, present_m, n_dropped, config,
+        )
+        # row_overflow already counted once in marginalize_post.
+        return prune.prune_post(state, prep, gate_p, torch.zeros_like(n_dropped), config)
 
 
 def frame_at(frames: FrameInput, t: int) -> FrameInput:

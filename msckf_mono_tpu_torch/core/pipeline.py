@@ -25,6 +25,7 @@ import torch
 from msckf_mono_tpu_torch.core import filter as msckf_filter
 from msckf_mono_tpu_torch.core.filter import FrameInput
 from msckf_mono_tpu_torch.core.types import _Replace, tree_map
+from msckf_mono_tpu_torch.eval.profile import stage
 from msckf_mono_tpu_torch.frontend import functional
 from msckf_mono_tpu_torch.frontend.functional import FrontendConfig, FrontendState
 from msckf_mono_tpu_torch.ops import cuda_graph
@@ -80,17 +81,19 @@ def _budget(uv, ids, valid, F):
 
 
 def step(carry: tuple, frame: ImageFrameInput, config: MsckfConfig, fcfg: FrontendConfig):
-    """(filter_state, frontend_state) x image-frame -> new carry + FrameOutput."""
+    """(filter_state, frontend_state) x image-frame -> new carry + FrameOutput;
+    the front-end is the stage ``step.frontend`` under a profiler."""
     state, fstate = carry
     dtype = state.P.dtype
     q_CI = _q_CI(config, dtype, state.P.device)
 
-    dR = _gyro_dR(frame, state.imu.b_g, q_CI, dtype)
-    fstate, feats = functional.frontend_step(fstate, frame.image.to(dtype), dR, config, fcfg)
+    with stage("step.frontend"):
+        dR = _gyro_dR(frame, state.imu.b_g, q_CI, dtype)
+        fstate, feats = functional.frontend_step(fstate, frame.image.to(dtype), dR, config, fcfg)
 
-    F = config.shapes.max_features_per_frame
-    t_uv, t_ids, t_valid = _budget(feats.tracked_uv, feats.tracked_ids, feats.tracked_valid, F)
-    n_uv, n_ids, n_valid = _budget(feats.new_uv, feats.new_ids, feats.new_valid, F)
+        F = config.shapes.max_features_per_frame
+        t_uv, t_ids, t_valid = _budget(feats.tracked_uv, feats.tracked_ids, feats.tracked_valid, F)
+        n_uv, n_ids, n_valid = _budget(feats.new_uv, feats.new_ids, feats.new_valid, F)
 
     fin = FrameInput(
         imu_omega=frame.imu_omega.to(dtype),

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from msckf_mono_tpu_torch.core.types import _Replace
+from msckf_mono_tpu_torch.eval.profile import stage
 from msckf_mono_tpu_torch.frontend import detect, klt, undistort
 from msckf_mono_tpu_torch.ops import cuda_graph
 from msckf_mono_tpu_torch.utils.config import MsckfConfig
@@ -129,7 +130,9 @@ def frontend_step(
     config: MsckfConfig,
     fcfg: FrontendConfig,
 ) -> tuple[FrontendState, FrontendOutput]:
-    """One frame: predict -> KLT -> reject -> detect new -> dedup carry.
+    """One frame: predict -> KLT -> reject -> detect new -> dedup carry,
+    under a profiler the stages ``frontend.pyramid``, ``frontend.track``,
+    ``frontend.detect`` and ``frontend.dedup`` (``eval/profile.stage``).
 
     img: (Bi, H, W); dR: (B, 3, 3), the camera-frame rotation over the
     inter-frame interval (the gyro integral, corner_detector.cpp:220-276).
@@ -142,69 +145,74 @@ def frontend_step(
     H, W = img.shape[-2:]
     K, K_inv = _camera_arrays(config, dtype, dev)
 
-    img = img.to(dtype)
-    cur_pyr = klt.build_pyramid(img, fcfg.max_level, precision=fcfg.image_precision)
+    with stage("frontend.pyramid"):
+        img = img.to(dtype)
+        cur_pyr = klt.build_pyramid(img, fcfg.max_level, precision=fcfg.image_precision)
 
     # ---- track (corner_detector.cpp:320-394) ----
-    Hm = K @ dR.to(dtype) @ K_inv                                           # (B, 3, 3)
-    ph = torch.cat([state.pts, torch.ones((B, F, 1), dtype=dtype, device=dev)], dim=-1)
-    ph = ph @ Hm.transpose(-1, -2)
-    denom = torch.where(torch.abs(ph[..., 2:3]) < 1e-12,
-                        torch.full_like(ph[..., 2:3], 1e-12), ph[..., 2:3])
-    pred = ph[..., :2] / denom
+    with stage("frontend.track"):
+        Hm = K @ dR.to(dtype) @ K_inv                                           # (B, 3, 3)
+        ph = torch.cat([state.pts, torch.ones((B, F, 1), dtype=dtype, device=dev)], dim=-1)
+        ph = ph @ Hm.transpose(-1, -2)
+        denom = torch.where(torch.abs(ph[..., 2:3]) < 1e-12,
+                            torch.full_like(ph[..., 2:3], 1e-12), ph[..., 2:3])
+        pred = ph[..., :2] / denom
 
-    track_valid = state.valid & state.has_prev[:, None]
-    pts, status = klt.track_features_pyr(
-        state.pyramid, cur_pyr, state.pts, pred, track_valid,
-        window_size=fcfg.window_size, max_iters=fcfg.max_iters,
-    )
-    status = klt.reject_outliers(state.pts, pts, status, (H, W), max_flow=fcfg.max_flow_px)
+        track_valid = state.valid & state.has_prev[:, None]
+        pts, status = klt.track_features_pyr(
+            state.pyramid, cur_pyr, state.pts, pred, track_valid,
+            window_size=fcfg.window_size, max_iters=fcfg.max_iters,
+        )
+        status = klt.reject_outliers(state.pts, pts, status, (H, W), max_flow=fcfg.max_flow_px)
 
-    tracked_uv = undistort.undistort_points(pts, K, cam.distortion_coeffs, cam.distortion_model)
-    minus1 = torch.full((), -1, dtype=torch.int32, device=dev)
-    tracked_ids = torch.where(status, state.ids, minus1)
+        tracked_uv = undistort.undistort_points(pts, K, cam.distortion_coeffs, cam.distortion_model)
+        minus1 = torch.full((), -1, dtype=torch.int32, device=dev)
+        tracked_ids = torch.where(status, state.ids, minus1)
 
     # ---- detect new corners in unoccupied cells (cd.cpp:396-429) ----
-    n_cells = fcfg.n_grid_rows * fcfg.n_grid_cols
-    cell = _cells(pts, H, W, fcfg.n_grid_rows, fcfg.n_grid_cols)
-    occupied = torch.zeros((B, n_cells + 1), dtype=torch.bool, device=dev)
-    occupied.scatter_(1, torch.where(status, cell, n_cells), True)
-    occupied = occupied[:, :n_cells]
+    with stage("frontend.detect"):
+        n_cells = fcfg.n_grid_rows * fcfg.n_grid_cols
+        cell = _cells(pts, H, W, fcfg.n_grid_rows, fcfg.n_grid_cols)
+        occupied = torch.zeros((B, n_cells + 1), dtype=torch.bool, device=dev)
+        occupied.scatter_(1, torch.where(status, cell, n_cells), True)
+        occupied = occupied[:, :n_cells]
 
-    xy, _score, det_valid = detect.detect_features(
-        img, occupied, fcfg.n_grid_rows, fcfg.n_grid_cols,
-        fcfg.fast_threshold, fcfg.detection_threshold,
-        st_precision=fcfg.image_precision,
-    )
-    order = torch.argsort((~det_valid).to(torch.uint8), dim=1, stable=True)[:, :F]
-    new_valid = torch.gather(det_valid, 1, order)
-    new_xy = torch.where(new_valid[..., None], _take(xy, order), 0.0).to(dtype)
-    # monotone ids: +1 once per frame, then sequential (cd.cpp:407-411)
-    n_valid = new_valid.to(torch.int32)
-    seq = torch.cumsum(n_valid, dim=1, dtype=torch.int32) - 1
-    new_ids = torch.where(new_valid, state.next_id[:, None] + 1 + seq, minus1)
-    next_id = state.next_id + 1 + torch.sum(n_valid, dim=1, dtype=torch.int32)
-    new_uv = undistort.undistort_points(new_xy, K, cam.distortion_coeffs, cam.distortion_model)
+        xy, _score, det_valid = detect.detect_features(
+            img, occupied, fcfg.n_grid_rows, fcfg.n_grid_cols,
+            fcfg.fast_threshold, fcfg.detection_threshold,
+            st_precision=fcfg.image_precision,
+        )
+        order = torch.argsort((~det_valid).to(torch.uint8), dim=1, stable=True)[:, :F]
+        new_valid = torch.gather(det_valid, 1, order)
+        new_xy = torch.where(new_valid[..., None], _take(xy, order), 0.0).to(dtype)
+        # monotone ids: +1 once per frame, then sequential (cd.cpp:407-411)
+        n_valid = new_valid.to(torch.int32)
+        seq = torch.cumsum(n_valid, dim=1, dtype=torch.int32) - 1
+        new_ids = torch.where(new_valid, state.next_id[:, None] + 1 + seq, minus1)
+        next_id = state.next_id + 1 + torch.sum(n_valid, dim=1, dtype=torch.int32)
+        new_uv = undistort.undistort_points(new_xy, K, cam.distortion_coeffs, cam.distortion_model)
 
-    out = FrontendOutput(
-        tracked_uv=torch.where(status[..., None], tracked_uv, 0.0).to(dtype),
-        tracked_ids=tracked_ids,
-        tracked_valid=status,
-        new_uv=torch.where(new_valid[..., None], new_uv, 0.0).to(dtype),
-        new_ids=new_ids,
-        new_valid=new_valid,
-    )
+        out = FrontendOutput(
+            tracked_uv=torch.where(status[..., None], tracked_uv, 0.0).to(dtype),
+            tracked_ids=tracked_ids,
+            tracked_valid=status,
+            new_uv=torch.where(new_valid[..., None], new_uv, 0.0).to(dtype),
+            new_ids=new_ids,
+            new_valid=new_valid,
+        )
 
     # ---- carry for the next frame: tracked + new, one per cell (cd.cpp:292-308) ----
-    cpts, cids, cvalid = _grid_dedup(
-        torch.cat([pts, new_xy], dim=1), torch.cat([tracked_ids, new_ids], dim=1),
-        torch.cat([status, new_valid], dim=1), H, W,
-        fcfg.n_grid_rows, fcfg.n_grid_cols, F,
-    )
-    new_state = FrontendState(
-        pyramid=cur_pyr, pts=cpts, ids=cids, valid=cvalid, next_id=next_id,
-        has_prev=torch.ones_like(state.has_prev),
-    )
+    with stage("frontend.dedup"):
+        cpts, cids, cvalid = _grid_dedup(
+            torch.cat([pts, new_xy], dim=1), torch.cat([tracked_ids, new_ids], dim=1),
+            torch.cat([status, new_valid], dim=1), H, W,
+            fcfg.n_grid_rows, fcfg.n_grid_cols, F,
+        )
+        new_state = FrontendState(
+            pyramid=cur_pyr, pts=cpts, ids=cids, valid=cvalid, next_id=next_id,
+            has_prev=torch.ones_like(state.has_prev),
+        )
+
     return new_state, out
 
 

@@ -41,6 +41,16 @@ device→host copy brings back the odometry, the archive buffers and the
 tracker's features for the visualizer together, only when the archives or
 the visualizer are kept. ``host_copies`` counts every device→host copy the
 interface makes.
+
+Host spans (``eval/profile.span``; request id: the frame's ``frame_count``):
+``live.imu`` for each reading (the next frame's id), and ``live.frame`` for
+each image, around ``live.drain`` (the queue drained, and the rare earlier
+blocks propagated), ``live.stage`` (the host inputs into the staging
+buffers, after the previous frame that read them), the graph's
+``graph.load`` and ``graph.replay``, ``live.copy_back`` (the host's wait on
+the device and the copy) and ``live.unpack``. ``LiveFrame.frame`` marks
+its front-end as the stage ``step.frontend``, and the tracker's three calls
+in it as ``frontend.dedup``, ``frontend.track`` and ``frontend.detect``.
 """
 
 from __future__ import annotations
@@ -56,6 +66,7 @@ from msckf_mono_tpu_torch.core.filter import FrameInput
 from msckf_mono_tpu_torch.core.init import ground_truth_init, standstill_init
 from msckf_mono_tpu_torch.core.types import filter_state_from_numpy, filter_state_to_numpy, init_filter_state
 from msckf_mono_tpu_torch.core.window import stable_order
+from msckf_mono_tpu_torch.eval.profile import span, stage
 from msckf_mono_tpu_torch.frontend.functional import _take
 from msckf_mono_tpu_torch.frontend.track_handler import TrackHandler
 from msckf_mono_tpu_torch.frontend.visualize import TrackVisualizer
@@ -169,19 +180,20 @@ class VioInterface:
         ``dt`` defaults to the gap since the previous reading, like the
         reference's prev_imu_time bookkeeping (ros_interface.cpp:31-43).
         """
-        omega = np.asarray(omega, float)
-        acc = np.asarray(acc, float)
-        if dt is None:
-            prev = (self.imu_queue[-1].time if self.imu_queue
-                    else (self._calib_buffer[-1].time if self._calib_buffer else None))
-            dt = 0.0 if prev is None else time - prev
-        reading = ImuReading(omega=omega, acc=acc, time=float(time), dt=float(dt))
-        if self.imu_calibrated:
-            self.imu_queue.append(reading)
-        else:
-            self._calib_buffer.append(reading)
-            if self._can_initialize_imu():
-                self._initialize_imu()
+        with span("live.imu", request=self.frame_count + 1):
+            omega = np.asarray(omega, float)
+            acc = np.asarray(acc, float)
+            if dt is None:
+                prev = (self.imu_queue[-1].time if self.imu_queue
+                        else (self._calib_buffer[-1].time if self._calib_buffer else None))
+                dt = 0.0 if prev is None else time - prev
+            reading = ImuReading(omega=omega, acc=acc, time=float(time), dt=float(dt))
+            if self.imu_calibrated:
+                self.imu_queue.append(reading)
+            else:
+                self._calib_buffer.append(reading)
+                if self._can_initialize_imu():
+                    self._initialize_imu()
 
     def image_callback(self, image, time: float):
         """Process one grayscale (H, W) frame (ros_interface.cpp:48-120).
@@ -190,24 +202,31 @@ class VioInterface:
         """
         if not self.imu_calibrated:
             return False
+        with span("live.frame", request=self.frame_count + 1):
+            return self._image_frame(image, time)
+
+    def _image_frame(self, image, time: float):
         if self._time_origin is None:
             self._time_origin = float(time)
 
         cfg = self.config
         K = cfg.shapes.imu_per_frame
-        drained = self._drain_imu(time)
-        self.frame_count += 1
         th = self.track_handler
+        with span("live.drain"):
+            drained = self._drain_imu(time)
+            self.frame_count += 1
 
-        # all-but-last block (the rare > K readings case): their gyro
-        # readings into the tracker and pure propagation, eagerly
-        split = max(0, -(-len(drained) // K) - 1) * K
-        if split:
-            blocks, gyro, _, _ = _pack_frame(drained[:split], K, 0, 0.0, self.dtype, self.device)
-            th.add_gyro_reading(quat_ops.rotate(self._q_CI, (gyro - self.state.imu.b_g).to(self.dtype)))
-            for omega, acc, dts in blocks:
-                frame = _imu_only_frame(omega, acc, dts, cfg, self.dtype)
-                self.state = msckf_filter.propagate_block(self.state, frame, cfg)
+            # all-but-last block (the rare > K readings case): their gyro
+            # readings into the tracker and pure propagation, eagerly
+            split = max(0, -(-len(drained) // K) - 1) * K
+            if split:
+                blocks, gyro, _, _ = _pack_frame(drained[:split], K, 0, 0.0, self.dtype,
+                                                 self.device)
+                th.add_gyro_reading(quat_ops.rotate(self._q_CI,
+                                                    (gyro - self.state.imu.b_g).to(self.dtype)))
+                for omega, acc, dts in blocks:
+                    frame = _imu_only_frame(omega, acc, dts, cfg, self.dtype)
+                    self.state = msckf_filter.propagate_block(self.state, frame, cfg)
 
         image = np.asarray(image)
         readings = drained[split:]
@@ -218,7 +237,10 @@ class VioInterface:
         self._host = None
         if self.collect_archives or self.visualizer is not None:
             self.host_copies += 1
-            self._pull_frame(packed.cpu().numpy())
+            with span("live.copy_back"):
+                flat = packed.cpu().numpy()
+            with span("live.unpack"):
+                self._pull_frame(flat)
         if self.visualizer is not None:
             self._last_image = image
         return True
@@ -402,7 +424,8 @@ class LiveFrame:
         th = self.track_handler
         frame_dt = float(time) - th.cur_time
         th.prev_time, th.cur_time = th.cur_time, float(time)
-        inputs = self._stage(image, omega, acc, dt, state_id, t_rel, frame_dt)
+        with span("live.stage"):
+            inputs = self._stage(image, omega, acc, dt, state_id, t_rel, frame_dt)
         carry = (state, th.carry())
         if cuda_graph.enabled() and th.graphable():
             key = (tuple(image.shape), image.dtype)
@@ -455,11 +478,16 @@ class LiveFrame:
         state, th_carry = carry
         th.load(th_carry)
         blk = vec[: 7 * K].reshape(K, 7)
-        th.add_gyro_reading(quat_ops.rotate(self._q_CI, (blk[:, 0:3] - state.imu.b_g).to(dtype)),
-                            vec[7 * K: 8 * K] > 0)
-        th._ingest(image)
-        tb = _budget(*th.tracked_features(vec[8 * K + 2]), F, dtype)
-        nb = _budget(*th.new_features(), F, dtype)
+        with stage("step.frontend"):
+            th.add_gyro_reading(quat_ops.rotate(self._q_CI,
+                                                (blk[:, 0:3] - state.imu.b_g).to(dtype)),
+                                vec[7 * K: 8 * K] > 0)
+            with stage("frontend.dedup"):
+                th._ingest(image)
+            with stage("frontend.track"):
+                tb = _budget(*th.tracked_features(vec[8 * K + 2]), F, dtype)
+            with stage("frontend.detect"):
+                nb = _budget(*th.new_features(), F, dtype)
         b = blk.to(dtype)[None]
         frame = FrameInput(
             imu_omega=b[..., 0:3], imu_acc=b[..., 3:6], imu_dt=b[..., 6],

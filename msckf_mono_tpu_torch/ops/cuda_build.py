@@ -8,6 +8,10 @@ every nvcc at once and waits for all of them. nvcc runs with
 ``-Xptxas=-v``, and its diagnostics (registers, stack frame and spills of
 every kernel instance) are kept beside the library, so :func:`build_all`
 returns them whether it built the library now or earlier.
+
+:data:`builds` counts the nvcc runs this process started and
+:data:`cache_hits` the libraries it found built; the wait for one nvcc is
+the host span ``build.nvcc`` (``eval/profile.span``).
 """
 
 from __future__ import annotations
@@ -23,12 +27,17 @@ import subprocess
 import tempfile
 from pathlib import Path
 
+from msckf_mono_tpu_torch.eval.profile import span
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
 KERNELS = ("psd_gamma", "fast_nms", "klt_level")
+
+builds = 0
+cache_hits = 0
 
 
 def source(name: str) -> Path:
@@ -57,8 +66,11 @@ def log_path(name: str) -> Path:
 
 def _start(name: str):
     """Start nvcc for one source into a temporary file; None if built already."""
+    global builds, cache_hits
     if library_path(name).exists():
+        cache_hits += 1
         return None
+    builds += 1
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
@@ -73,7 +85,8 @@ def _finish(name: str, started) -> None:
     never loads a half-written library, and a library never lacks its log)."""
     proc, tmp = started
     try:
-        _, err = proc.communicate()
+        with span("build.nvcc", attrs={"source": name}):
+            _, err = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}.cu ({proc.returncode}):\n{err}")
         log_tmp = tmp + ".log"

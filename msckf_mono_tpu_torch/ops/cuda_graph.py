@@ -31,6 +31,12 @@ Launch counts: each kernel wrapper counts its launches in Python, and a
 replayed graph calls no Python. Warm-up's and capture's counts are undone;
 the capture's count of each wrapper is kept as the graph's delta and added
 on every replay, so the counts equal those of an eager run.
+
+Host spans (``eval/profile.span``): ``graph.warm_up`` and ``graph.capture``
+around a capture, ``graph.load`` and ``graph.replay`` in each call, and in
+a scan ``scan.step`` (request id: the step's index) around ``scan.slice``,
+the call and ``scan.stack``; a capture's spans name its function. :data:`captures`
+counts the graphs captured.
 """
 
 from __future__ import annotations
@@ -42,11 +48,15 @@ import threading
 
 import torch
 
+from msckf_mono_tpu_torch.eval.profile import span
 from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda, psd_cuda
 
 # The wrappers whose ``.launches`` a replay adds to (the function objects
 # hold the counts, see ops/psd_cuda.py).
 LAUNCH_COUNTERS = (psd_cuda._GAMMA_PSD, fast_cuda._FAST_NMS_SCORE, klt_cuda._TRACK_LEVEL)
+
+# Graphs captured in this process.
+captures = 0
 
 _STATE = threading.local()
 
@@ -227,10 +237,13 @@ class StepGraph:
         return y_leaves, y_struct
 
     def _capture(self):
+        global captures
         dev = self.device
+        name = self.fn.__qualname__
         with torch.cuda.device(dev):
-            warm_up(lambda c, *xs: self.fn(c, *xs, *self.static), (self.carry, *self._xs),
-                    self.counters)
+            with span("graph.warm_up", attrs={"graph": name}):
+                warm_up(lambda c, *xs: self.fn(c, *xs, *self.static), (self.carry, *self._xs),
+                        self.counters)
             side = torch.cuda.Stream(dev)
             self.graph = torch.cuda.CUDAGraph()
             # A graph that the cyclic collector frees during the capture (a
@@ -239,7 +252,8 @@ class StepGraph:
             collect = gc.isenabled()
             gc.disable()
             try:
-                with counted_apart(self.counters) as delta:
+                with span("graph.capture", attrs={"graph": name}), \
+                        counted_apart(self.counters) as delta:
                     with torch.cuda.graph(self.graph, stream=side,
                                           capture_error_mode="thread_local"):
                         self._y = self._body()
@@ -251,20 +265,23 @@ class StepGraph:
                 if collect:
                     gc.enable()
         self.delta = delta
+        captures += 1
 
     def __call__(self, carry, *xs):
         c_leaves, c_struct = flatten(carry)
         x_leaves, x_struct = flatten(tuple(xs))
         if c_struct != self._c_struct or x_struct != self._x_struct:
             raise ValueError(f"{self.fn.__qualname__}: inputs do not match the captured structure")
-        self._load(c_leaves, x_leaves)
-        if self.graph is None:
-            y_leaves, y_struct = self._body()
-        else:
-            self.graph.replay()
-            for c, d in zip(self.counters, self.delta):
-                c.launches += d
-            y_leaves, y_struct = self._y
+        with span("graph.load"):
+            self._load(c_leaves, x_leaves)
+        with span("graph.replay"):
+            if self.graph is None:
+                y_leaves, y_struct = self._body()
+            else:
+                self.graph.replay()
+                for c, d in zip(self.counters, self.delta):
+                    c.launches += d
+                y_leaves, y_struct = self._y
         self.replays += 1
         return self.carry, unflatten(y_struct, y_leaves)
 
@@ -342,7 +359,10 @@ def _scan_steps(fn, carry, xs, static):
     if not enabled():
         ys = []
         for t in range(T):
-            carry, y = fn(carry, _at(xs, t), *static)
+            with span("scan.step", request=t):
+                with span("scan.slice"):
+                    x = _at(xs, t)
+                carry, y = fn(carry, x, *static)
             ys.append(y)
             yield
         y_leaves = [flatten(y)[0] for y in ys]
@@ -350,16 +370,19 @@ def _scan_steps(fn, carry, xs, static):
 
     g = None
     for t in range(T):
-        x = _at(xs, t)
-        if g is None:
-            g = step_graph(fn, carry, (x,), static)
-        carry, y = g(carry, x)
-        y_leaves, y_struct = flatten(y)
-        if t == 0:
-            stacks = [torch.empty((T,) + tuple(v.shape), dtype=v.dtype, device=v.device)
-                      for v in y_leaves]
-        for s, v in zip(stacks, y_leaves):
-            s[t].copy_(v)
+        with span("scan.step", request=t):
+            with span("scan.slice"):
+                x = _at(xs, t)
+            if g is None:
+                g = step_graph(fn, carry, (x,), static)
+            carry, y = g(carry, x)
+            with span("scan.stack"):
+                y_leaves, y_struct = flatten(y)
+                if t == 0:
+                    stacks = [torch.empty((T,) + tuple(v.shape), dtype=v.dtype, device=v.device)
+                              for v in y_leaves]
+                for s, v in zip(stacks, y_leaves):
+                    s[t].copy_(v)
         yield
     return clone(carry), unflatten(y_struct, stacks)
 
