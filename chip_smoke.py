@@ -6,7 +6,7 @@
 Phases, each printed on its own lines; any failure raises and exits non-zero:
 
 1. [device]: the card's name, and its name and power limit from nvidia-smi;
-2. [build]: compiles csrc/{psd_gamma,fast_nms,klt_level}.cu with nvcc for
+2. [build]: compiles csrc/{psd_gamma,fast_nms,klt_level,triangulate}.cu with nvcc for
    sm_90a (-Xptxas -v), one nvcc process per source, all at once (or reuses
    the libraries and their nvcc reports from an earlier build), and prints
    every kernel instance's registers, stack frame and spills; then the
@@ -26,6 +26,19 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    sample_pairs bit-equal; normal (1024, 3) f32 within 2 eps relative, f64
    within 1e-12; a captured graph that splits a carried key and samples the
    pairs equal to an eager loop over 10 replays, and the draw's device time;
+   [triangulate]: the triangulation kernel (motion gate + LM) against its
+   plain version at the frame step's three call shapes, (1024, 8, 28) and
+   (1024, 16, 28) of a 1024-filter fleet at the serving configuration and
+   (1, 16, 28) of one filter's sequential updates, on the inputs eager runs
+   give (the fleet's 32 frames, the live path's 60; of each kind the call
+   with the most tracks that two slots or more observe): motion_ok
+   identical, tri_ok identical away from the cost limit, a floor of tracks
+   valid in both at each shape, every point within 1e-3 of its distance
+   and the kernel's points no farther from the float64 plain version's
+   than the float32 plain version's are, the kernel's time (one call, and
+   device time), its bound counted on those inputs, the plain version's
+   time and the kernel's registers; every path below counts the kernel's
+   launches, 2 a frame step (and one a pass of finish());
 4. [main], [profile], [gate]: the filter path on precomputed tracks, the
    serving configuration of bench.py (fused updates, caps 2/22, max_staged 8)
    on a 1024-filter fleet over the 200-frame synthetic sequence: make_fleet
@@ -273,11 +286,11 @@ def _demangle(names):
 
 def phase_build():
     """Build every kernel; returns {source: [ptxas usage of each instance]}."""
-    from msckf_mono_tpu_torch.ops import cuda_build, fast_cuda, klt_cuda, psd_cuda
+    from msckf_mono_tpu_torch.ops import cuda_build, fast_cuda, klt_cuda, psd_cuda, triangulate_cuda
 
     t0 = time.time()
     logs = cuda_build.build_all()
-    for mod in (psd_cuda, fast_cuda, klt_cuda):
+    for mod in (psd_cuda, fast_cuda, klt_cuda, triangulate_cuda):
         mod._load()
     log(f"[build] {', '.join(cuda_build.library_path(n).name for n in logs)} in "
         f"{time.time() - t0:.2f} s")
@@ -429,6 +442,197 @@ def phase_kernel(torch):
     return per_shape
 
 
+# The frame step's triangulation calls: (stage, configuration, filters); the
+# window has 28 slots. The serving fleet stages 8 tracks and 16 prune
+# candidates a filter, the live path (sequential updates) 16 of each.
+TRI_CASES = (("marginalize", "serving", 1024), ("prune", "serving", 1024),
+             ("live marginalize", "live", 1), ("live prune", "live", 1))
+# The eager runs whose calls are recorded, (frames, sequence seed): the
+# window fills at frame 20; the fleet triangulates 16 prune candidates a
+# filter on frames 21-25, the live filter up to 5 staged tracks and 16 prune
+# candidates a frame.
+TRI_RUNS = {"serving": (32, 0), "live": (60, 1)}
+# Tracks valid in both at least, at each shape (the busiest calls give
+# ~3,000 and ~16,000 in the fleet, 5 and 16 in the live filter).
+TRI_MIN_VALID = {"marginalize": 1024, "prune": 1024, "live marginalize": 3, "live prune": 8}
+# Operations a track needs at least, over its m observing slots: each slot's
+# pose relative to the first camera (rotation 21, A = R R0^T 45, t 18), its
+# motion-gate baseline 22, its initial cost 22, its Huber-weighted normal
+# equations 100 (one outer step) and its cost 22 (one trial), its
+# cheirality test 7; and one damped 3 x 3 solve 70 a track. A track takes
+# more outer steps and trials than one; counted at one, the operations stay
+# below the bytes' bound at every shape, so the bound is the bytes either way.
+TRI_SLOT_OPS, TRI_SOLVE_OPS = 257, 70
+
+
+def triangulations_per_step(cfg):
+    """Triangulation launches a frame step: marginalize, and prune when on."""
+    return 1 + int(cfg.filter.use_prune_redundant)
+
+
+def _triangulation_calls(torch, which, batch):
+    """The inputs of two triangulation calls of an eager run (TRI_RUNS),
+    [(args, kwargs, frame)] for marginalize, then prune: of each kind the call with
+    the most tracks that two slots or more observe (the world's tracks die on
+    some frames only, and prune triangulates only where it finds a redundant
+    slot)."""
+    from msckf_mono_tpu_torch.core import filter as msckf_filter
+    from msckf_mono_tpu_torch.core import triangulate
+    from msckf_mono_tpu_torch.core.init import ground_truth_init
+    from msckf_mono_tpu_torch.core.types import init_filter_state
+    from msckf_mono_tpu_torch.data import synthetic
+    from msckf_mono_tpu_torch.ops import cuda_graph
+    from msckf_mono_tpu_torch.parallel import montecarlo
+    from msckf_mono_tpu_torch.utils.config import MsckfConfig
+
+    cfg = serving_config(batch) if which == "serving" else MsckfConfig()
+    n_frames, seed = TRI_RUNS[which]
+    seq = synthetic.generate(cfg, n_frames=n_frames, seed=seed, pixel_noise=0.5)
+    imu = ground_truth_init(**GT_INIT, b_g=seq.b_g, b_a=seq.b_a, dtype=torch.float32, device="cuda")
+    frames = montecarlo.broadcast_frames(synthetic.to_frame_inputs(seq, torch.float32, device="cuda"),
+                                         batch)
+    state = (montecarlo.make_fleet(cfg, imu, batch, dtype=torch.float32, device="cuda")
+             if which == "serving" else init_filter_state(cfg, imu, dtype=torch.float32, device="cuda"))
+    calls, dispatch = [], triangulate.triangulate_tracks
+
+    def record(obs, mask, q, p, thr, max_cost, n_iters=11, n_trials=11):
+        calls.append(((obs.clone(), mask.clone(), q.clone(), p.clone(), thr, max_cost),
+                      dict(n_iters=n_iters, n_trials=n_trials)))
+        return dispatch(obs, mask, q, p, thr, max_cost, n_iters=n_iters, n_trials=n_trials)
+
+    triangulate.triangulate_tracks = record
+    try:
+        with cuda_graph.disabled():      # a replayed graph calls no Python
+            msckf_filter.run_sequence(state, frames, cfg)
+    finally:
+        triangulate.triangulate_tracks = dispatch
+    per_step = triangulations_per_step(cfg)
+    check(per_step == 2 and len(calls) == per_step * n_frames,
+          f"{len(calls)} triangulation calls recorded over {n_frames} frames")
+    busiest = lambda k: max(range(k, len(calls), 2),
+                            key=lambda i: int((calls[i][0][1].sum(-1) >= 2).sum()))
+    return [calls[i] + (i // per_step,) for i in (busiest(0), busiest(1))]
+
+
+def triangulation_work(args):
+    """(operations, bytes) one call needs at least on these inputs: the
+    operations of TRI_SLOT_OPS a slot that observes and TRI_SOLVE_OPS a
+    track that some slot observes; the bytes of the observations, masks and
+    window poses read once and the three outputs written once."""
+    obs, mask, q, p = args[:4]
+    m = mask.sum(-1)
+    ops = float(TRI_SLOT_OPS * m.sum() + TRI_SOLVE_OPS * (m > 0).sum())
+    n, N = mask.numel() // mask.shape[-1], mask.shape[-1]
+    nbytes = n * N * (2 * 4 + 1) + (q.numel() + p.numel()) * 4 + n * (1 + 1 + 3 * 4)
+    return ops, nbytes
+
+
+def triangulation_cost(torch, args, p_f_G):
+    """The normalised cost, total / (2 max(m, 1)^2), of the points p_f_G,
+    recomputed in float64 as the plain version computes it."""
+    from msckf_mono_tpu_torch.core import triangulate
+
+    obs, mask, q, p = args[:4]
+    obs, q, p, p_f_G = (x.double() for x in (obs, q, p, p_f_G))
+    qe, pe = triangulate._expand_window(obs, q, p)
+    A, t, A0, t0 = triangulate._relative_poses(mask, qe, pe)
+    x = (A0.transpose(-1, -2) @ (p_f_G - t0)[..., None])[..., 0]
+    sol = torch.stack([x[..., 0] / x[..., 2], x[..., 1] / x[..., 2], 1.0 / x[..., 2]], dim=-1)
+    m = mask.sum(-1).clamp(min=1).double()
+    return triangulate._total_cost(A, t, obs, mask, sol) / (2.0 * m * m)
+
+
+def phase_triangulate(torch, usage):
+    """[triangulate]: kernel against plain version, times and bound at the
+    frame step's call shapes: motion_ok identical; tri_ok identical except
+    where the plain version's normalised cost lies within 1e-4 relative of
+    the limit; at least TRI_MIN_VALID tracks valid in both; their points
+    within 1e-3 of the distance (or 1e-5 m) on every one; and, over 200
+    tracks or more, the kernel's distance to the float64 plain version no
+    larger than the float32 plain version's (median and 99th percentile,
+    25% slack). Points within 1e-4 of the plain version's on 99% of the
+    tracks (the card tests' rule on the fleet's last frames) does not hold
+    on every call: on a window of a few poses a float32 LM stops ~1e-4 of
+    the distance from where the float64 one does, on a few % of the tracks,
+    and moves as far when its inputs move by one ulp; it is printed."""
+    from msckf_mono_tpu_torch.core import triangulate
+    from msckf_mono_tpu_torch.ops import triangulate_cuda
+
+    kernel, plain = triangulate_cuda.triangulate_tracks, triangulate.triangulate_tracks_plain
+    recorded = {}
+    for which, batch in (("serving", 1024), ("live", 1)):
+        recorded[which] = _triangulation_calls(torch, which, batch)
+    check(len(usage["triangulate"]) == 1, f"[triangulate] {len(usage['triangulate'])} kernel instances")
+    registers = usage["triangulate"][0]["registers"]
+    per_shape = []
+    for (stage, which, batch), (args, kw, frame) in zip(
+            TRI_CASES, recorded["serving"] + recorded["live"]):
+        shape = tuple(args[0].shape[:-1])
+        before = kernel.launches
+        mk, pk, tk = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        check(kernel.launches == before + 1, f"[triangulate] {stage}: launches not counted")
+        mp, pp, tp = plain(*args, **kw)
+        check(torch.equal(mk, mp), f"[triangulate] {stage}: motion_ok differs on "
+              f"{int((mk != mp).sum())} tracks")
+        limit = args[5]
+        near = (triangulation_cost(torch, args, pp) - limit).abs() <= 1e-4 * limit
+        differ = (tk != tp) & ~near
+        check(not bool(differ.any()), f"[triangulate] {stage}: tri_ok differs on "
+              f"{int(differ.sum())} tracks away from the cost limit")
+        both = tk & tp
+        n_both = int(both.sum())
+        check(n_both >= TRI_MIN_VALID[stage], f"[triangulate] {stage}: {n_both} tracks valid in "
+              f"both, fewer than {TRI_MIN_VALID[stage]}")
+        dist = torch.linalg.norm(pp, dim=-1)[both]
+        d = torch.linalg.norm(pk - pp, dim=-1)[both]
+        rel = d / dist.clamp(min=1e-30)
+        worst = float(rel.max())
+        over = int((d > torch.clamp(1e-4 * dist, min=1e-5)).sum())
+        obs, mask, q, p = args[:4]
+        _, p64, t64 = plain(obs.double(), mask, q.double(), p.double(), *args[4:], **kw)
+        all3 = both & t64
+        e32 = torch.linalg.norm(pp.double() - p64, dim=-1)[all3]
+        ek = torch.linalg.norm(pk.double() - p64, dim=-1)[all3]
+        dist64 = torch.linalg.norm(p64, dim=-1)[all3]
+        over32 = int((e32 > torch.clamp(1e-4 * dist64, min=1e-5)).sum())
+        overk = int((ek > torch.clamp(1e-4 * dist64, min=1e-5)).sum())
+        qs = torch.tensor([0.5, 0.99], dtype=torch.float64, device=pp.device)
+        q32, qk = ((torch.quantile(e, qs).tolist() if e.numel() else [0.0, 0.0]) for e in (e32, ek))
+        ops, nbytes = triangulation_work(args)
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / F32_FLOPS_PER_S * 1e3
+        row = dict(stage=stage, shape=shape, registers=registers,
+                   ms=_time_ms(torch, lambda: kernel(*args, **kw)),
+                   device_ms=_graph_ms(torch, lambda: kernel(*args, **kw)),
+                   plain_ms=_time_ms(torch, lambda: plain(*args, **kw)),
+                   bound_ms=max(bytes_ms, ops_ms), bound_by="bytes" if bytes_ms >= ops_ms else "operations",
+                   ops=ops, bytes=nbytes, frame=frame, observed=int((args[1].sum(-1) >= 2).sum()),
+                   motion_ok=int(mk.sum()), tri_ok=[int(tk.sum()), int(tp.sum())],
+                   valid_in_both=n_both, tri_ok_differ=int((tk != tp).sum()),
+                   tri_ok_near_limit=int(near.sum()), max_rel_p=worst, over_1e4=over,
+                   f64_median_99=dict(plain=q32, kernel=qk),
+                   f64_over_1e4=dict(plain=over32, kernel=overk, tracks=int(all3.sum())))
+        per_shape.append(row)
+        log(f"[triangulate] {stage} {shape}, frame {frame} ({registers} registers): kernel "
+            f"{row['ms']:.4f} ms a call, {row['device_ms']:.4f} ms on the device, plain "
+            f"{row['plain_ms']:.4f} ms; bound {row['bound_ms']:.5f} ms ({row['bound_by']}; "
+            f"at least {ops / 1e6:.2f} MFLOP, {nbytes / 1e6:.2f} MB); {row['observed']} tracks "
+            f"seen twice or more; motion_ok identical ({row['motion_ok']} pass), tri_ok "
+            f"{row['tri_ok'][0]} / plain {row['tri_ok'][1]} ({row['tri_ok_differ']} differ, "
+            f"{row['tri_ok_near_limit']} within 1e-4 of the cost limit), {n_both} valid in both "
+            f"(at least {TRI_MIN_VALID[stage]}), points within {worst:.2e} of their distance "
+            f"({over} beyond 1e-4); to the float64 plain version (median, 99th) plain f32 "
+            f"{q32[0]:.3e}, {q32[1]:.3e} m, kernel {qk[0]:.3e}, {qk[1]:.3e} m, beyond 1e-4 of the "
+            f"distance {over32} / {overk} of {int(all3.sum())}")
+        check(bool(torch.all(d <= torch.clamp(1e-3 * dist, min=1e-5))),
+              f"[triangulate] {stage}: a point {worst:.3e} of its distance apart")
+        if e32.numel() >= 200:
+            check(all(b <= 1.25 * a + 1e-7 for a, b in zip(q32, qk)),
+                  f"[triangulate] {stage}: the kernel's distance to the float64 plain version "
+                  f"(median, 99th) {qk} exceeds the float32 plain version's {q32}")
+    return per_shape
+
+
 PRNG_SEEDS = (0, 1, 2**32 - 1)
 PRNG_REPLAYS = 10
 RANSAC_F = 128               # the live tracker's feature slots: RANSAC's points
@@ -550,7 +754,7 @@ def phase_main(torch, batch, frames):
     metrics = sharding.fleet_metrics(final)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    fast_n, klt_n, launches = _counts()
+    fast_n, klt_n, launches, tri_n = _counts()
     check((fast_n, klt_n) == (0, 0), f"the filter path launched FAST {fast_n}, KLT {klt_n} times")
 
     est = outs.p_I_G.cpu().numpy()                       # (T, B, 3)
@@ -568,9 +772,10 @@ def phase_main(torch, batch, frames):
         f"residualized {int(m['total_residualized'])} ({BENCH_R05['residualized']}), "
         f"row_overflow {int(m['total_row_overflow'])} ({BENCH_R05['row_overflow']}), "
         f"staged_overflow {int(m['total_staged_overflow'])} ({BENCH_R05['staged_overflow']}); "
-        f"gamma kernel launches {launches} over {frames} steps")
+        f"gamma kernel launches {launches}, triangulate {tri_n} over {frames} steps")
     check(ate0 < ATE_GATE_M, f"ATE {ate0:.4f} m >= {ATE_GATE_M} m")
     check(launches == 2 * frames, f"{launches} gamma launches, expected {2 * frames}")
+    check(tri_n == 2 * frames, f"{tri_n} triangulate launches, expected {2 * frames}")
     # Mid-sequence frames, the window full: the state after frame `lo` goes on
     # with frames lo, lo + 1, ... as in the main run.
     lo = min(30, frames // 2)
@@ -582,7 +787,7 @@ def phase_main(torch, batch, frames):
     main = dict(cfg=cfg, final=final, outs=outs, frames=frames_dev, make=make,
                 steps_per_s=batch * frames / seconds, frame_ms=frame_ms, peak_gib=peak,
                 reserved_gib=reserved, capture_s=capture_s, profile=profile,
-                profile_go=lambda: run(mid, prof_frames))
+                profile_go=lambda: run(mid, prof_frames), triangulate_launches=tri_n)
     return launches, main
 
 
@@ -841,18 +1046,23 @@ def image_frames(seq, imgs, B, independent):
 
 
 def _counts():
-    from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda, psd_cuda
+    """Launches of (FAST, KLT, gamma, triangulate)."""
+    from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda, psd_cuda, triangulate_cuda
 
     return (fast_cuda.fast_nms_score.launches, klt_cuda.track_level.launches,
-            psd_cuda.gamma_psd.launches)
+            psd_cuda.gamma_psd.launches, triangulate_cuda.triangulate_tracks.launches)
 
 
 def _zero_counts():
-    from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda, psd_cuda
+    from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda, psd_cuda, triangulate_cuda
 
     fast_cuda.fast_nms_score.launches = 0
     klt_cuda.track_level.launches = 0
     psd_cuda.gamma_psd.launches = 0
+    triangulate_cuda.triangulate_tracks.launches = 0
+
+
+LAUNCH_KEYS = ("fast", "klt", "gamma", "triangulate")
 
 
 def image_run(torch, tag, seq, imgs, B, independent, fcfg):
@@ -893,7 +1103,7 @@ def image_run(torch, tag, seq, imgs, B, independent, fcfg):
     metrics = sharding.fleet_metrics(final)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    fast_n, klt_n, gamma_n = _counts()
+    fast_n, klt_n, gamma_n, tri_n = _counts()
 
     est = outs.p_I_G.cpu().numpy()                       # (T, B, 3)
     check(np.all(np.isfinite(est)), f"[{tag}] non-finite trajectory")
@@ -915,14 +1125,15 @@ def image_run(torch, tag, seq, imgs, B, independent, fcfg):
         f"staged_overflow {int(m['total_staged_overflow'])}, mean cam count "
         f"{m['mean_cam_count']:.1f}; live tracks at the end {int(ffinal.valid.sum())} "
         f"({int(ffinal.valid[0].sum())} for filter 0), next id of filter 0 {int(ffinal.next_id[0])}")
-    log(f"[{tag}] launches over {T} frames: FAST {fast_n}, KLT {klt_n}, gamma {gamma_n}")
+    log(f"[{tag}] launches over {T} frames: FAST {fast_n}, KLT {klt_n}, gamma {gamma_n}, "
+        f"triangulate {tri_n}")
     check(ate0 < ATE_GATE_M, f"[{tag}] ATE {ate0:.4f} m >= {ATE_GATE_M} m")
-    check((fast_n, klt_n, gamma_n) == (T, 4 * T, 2 * T),
-          f"[{tag}] launches FAST {fast_n}, KLT {klt_n}, gamma {gamma_n}; expected "
-          f"{T}, {4 * T}, {2 * T}")
+    check((fast_n, klt_n, gamma_n, tri_n) == (T, 4 * T, 2 * T, 2 * T),
+          f"[{tag}] launches FAST {fast_n}, KLT {klt_n}, gamma {gamma_n}, triangulate {tri_n}; "
+          f"expected {T}, {4 * T}, {2 * T}, {2 * T}")
     result = dict(B=B, T=T, seconds=seconds, steps_per_s=B * T / seconds, ate0=ate0,
                   peak_gib=peak, reserved_gib=reserved, capture_s=capture_s,
-                  launches=dict(fast=fast_n, klt=klt_n, gamma=gamma_n), **m)
+                  launches=dict(fast=fast_n, klt=klt_n, gamma=gamma_n, triangulate=tri_n), **m)
     return result, run, make, frames, cfg
 
 
@@ -1132,10 +1343,11 @@ def phase_graph(torch, tag, step, static, make, frames, main):
     err = float((e["pos"] - r["pos"]).abs().max())
     log(f"[{tag}] {n} frames, eager against replayed from the cached graph ({r['replays']} "
         f"replays): bit-equal {same}; max position difference {err:.3e} m; counters eager "
-        f"{e['metrics']}, replay {r['metrics']}; launches (FAST, KLT, gamma) eager {e['launches']}, "
-        f"replay {r['launches']}")
+        f"{e['metrics']}, replay {r['metrics']}; launches (FAST, KLT, gamma, triangulate) eager "
+        f"{e['launches']}, replay {r['launches']}")
     check(r["replays"] == n, f"[{tag}] {r['replays']} replays over {n} frames")
     check(e["launches"] == r["launches"], f"[{tag}] launches differ")
+    check(r["launches"][3] == 2 * n, f"[{tag}] {r['launches'][3]} triangulate launches over {n} frames")
     check(e["metrics"] == r["metrics"], f"[{tag}] counters differ")
     check(all(torch.equal(e["diag"][k], r["diag"][k]) for k in e["diag"]),
           f"[{tag}] per-filter diagnostics differ")
@@ -1225,7 +1437,8 @@ def phase_profile(torch, tag, go, frame_ms):
                   key=lambda a: a.self_device_time_total, reverse=True)
     mine = {}
     for a in rows:
-        for name, prefix in (("gamma", "gamma_"), ("fast", "fast_nms"), ("klt", "klt_")):
+        for name, prefix in (("gamma", "gamma_"), ("fast", "fast_nms"), ("klt", "klt_"),
+                             ("triangulate", "triangulate_")):
             if a.key.startswith(prefix) or f" {prefix}" in a.key or f"::{prefix}" in a.key:
                 t, n = mine.get(name, (0.0, 0.0))
                 mine[name] = (t + a.self_device_time_total / 1e3 / PROFILE_FRAMES,
@@ -1268,14 +1481,16 @@ GT_INIT = dict(p_I_G=[5.0, 0.0, 0.0], q_IG=[1, 0, 0, 0], v_I_G=[0.0, 5.0 * 0.35,
 def live_expected_launches(cfg, frames, finish=True):
     """Exact launches of a live run of ``frames`` frames: FAST once a frame,
     KLT once a level from the second frame on, gamma once a chunk of each
-    gated row stack (marginalize, then prune), and in finish() once a chunk
-    of each of its passes."""
+    gated row stack (marginalize, then prune), triangulate once a stack, and
+    in finish() gamma once a chunk and triangulate once for each of its
+    passes."""
     shp = cfg.shapes
     marg = shp.max_staged // min(shp.staged_chunk, shp.max_staged)
     prune = shp.max_staged_prune // min(shp.prune_chunk or shp.staged_chunk, shp.max_staged_prune)
     per_frame = marg + (prune if cfg.filter.use_prune_redundant else 0)
     passes = -(-shp.max_tracks // shp.max_staged)
-    return frames, 4 * (frames - 1), per_frame * frames + (passes * marg if finish else 0)
+    return (frames, 4 * (frames - 1), per_frame * frames + (passes * marg if finish else 0),
+            triangulations_per_step(cfg) * frames + (passes if finish else 0))
 
 
 class SyncCounter:
@@ -1423,8 +1638,8 @@ def phase_live_cli(torch, root, info, frames):
         f"{report['fps']} frames/s ({report['wall_s']} s), ATE {report['ate_rmse']:.4f} m "
         f"(limit {ATE_GATE_M}), final drift {report['final_drift']:.4f} m")
     log(f"[live-cli] map {len(dat['map'])} points, {len(dat['pruned_state_id'])} pruned poses; "
-        f"launches FAST {launches[0]}, KLT {launches[1]}, gamma {launches[2]} (expected "
-        f"{want[0]}, {want[1]}, {want[2]}); device->host copies {copies[0]} "
+        f"launches FAST {launches[0]}, KLT {launches[1]}, gamma {launches[2]}, triangulate "
+        f"{launches[3]} (expected {want[0]}, {want[1]}, {want[2]}, {want[3]}); device->host copies {copies[0]} "
         f"({copies[0] / frames:.2f} a frame), synchronizing CUDA calls {syncs.count} "
         f"({syncs.count / frames:.2f} a frame: {syncs.summary(frames)})")
     check(report["frames"] == frames, f"[live-cli] {report['frames']} frames, expected {frames}")
@@ -1432,7 +1647,7 @@ def phase_live_cli(torch, root, info, frames):
     check(report["final_drift"] < 1.0, f"[live-cli] final drift {report['final_drift']:.4f} m >= 1 m")
     check(tuple(launches) == want, f"[live-cli] launches {launches}, expected {want}")
     return dict(report=report, map_points=len(dat["map"]), pruned=len(dat["pruned_state_id"]),
-                launches=dict(zip(("fast", "klt", "gamma"), launches)),
+                launches=dict(zip(LAUNCH_KEYS, launches)),
                 host_copies_per_frame=copies[0] / frames, syncs_per_frame=syncs.count / frames)
 
 
@@ -1522,8 +1737,9 @@ def phase_live(torch, tag, seq, imgs, frames, cfg, recorder=None):
         f"{n_map_before} points before finish(), {len(vio.map())} after; {len(pruned['state_id'])} "
         f"pruned poses; window {len(cs['state_id'])} poses; map_points() {vio.map_points().shape}; "
         f"overlay {overlay.shape} {overlay.dtype}")
-    log(f"[{tag}] launches FAST {launches[0]}, KLT {launches[1]}, gamma {launches[2]} (expected "
-        f"{want[0]}, {want[1]}, {want[2]}); device->host copies {vio.host_copies} "
+    log(f"[{tag}] launches FAST {launches[0]}, KLT {launches[1]}, gamma {launches[2]}, triangulate "
+        f"{launches[3]} (expected {want[0]}, {want[1]}, {want[2]}, {want[3]}); device->host copies "
+        f"{vio.host_copies} "
         f"({vio.host_copies / frames:.2f} a frame), synchronizing CUDA calls in image_callback "
         f"{syncs.count} ({syncs.count / frames:.2f} a frame: {syncs.summary(frames)})")
     replays = sum(g.replays for g in vio._live_frame.graphs.values())
@@ -1543,7 +1759,7 @@ def phase_live(torch, tag, seq, imgs, frames, cfg, recorder=None):
                 p50_all_ms=_percentile(lat, 50), p99_all_ms=_percentile(lat, 99),
                 first_ms=lat[0], capture_frame_ms=lat[1], frames_per_s=frames / seconds,
                 finish_ms=finish_ms, ate=ate, final_drift=drift, map_points=len(vio.map()),
-                pruned=len(pruned["state_id"]), launches=dict(zip(("fast", "klt", "gamma"), launches)),
+                pruned=len(pruned["state_id"]), launches=dict(zip(LAUNCH_KEYS, launches)),
                 host_copies_per_frame=vio.host_copies / frames, syncs_per_frame=syncs.count / frames,
                 steady_syncs_max=max(steady), replayed_frames=replays,
                 _ids=np.asarray(ids), _pos=est, _lat=lat)
@@ -1698,8 +1914,8 @@ def phase_live_ransac(torch, seq, imgs, cfg, live):
         f"p99 {e_p99:.2f} ms; bit-equal to the replayed run (ids and positions) {same}")
     log(f"[live-ransac] synchronizing calls a frame {r['syncs'].count / frames:.2f} (from the third "
         f"frame on: max {max(steady)}; {r['syncs'].summary(frames)}); launches FAST "
-        f"{r['launches'][0]}, KLT {r['launches'][1]}, gamma {r['launches'][2]} (expected "
-        f"{want[0]}, {want[1]}, {want[2]}); ATE(filter 0) {ate:.4f} m ([live] {live['ate']:.4f} m), "
+        f"{r['launches'][0]}, KLT {r['launches'][1]}, gamma {r['launches'][2]}, triangulate "
+        f"{r['launches'][3]} (expected {want[0]}, {want[1]}, {want[2]}, {want[3]}); ATE(filter 0) {ate:.4f} m ([live] {live['ate']:.4f} m), "
         f"final drift {drift:.4f} m; tracked feature-frames {tracked} ({tracked_off} with RANSAC off)")
     check(replays == frames - 1, f"[live-ransac] {replays} replayed frames of {frames}")
     check(same, "[live-ransac] the replayed frames differ from the eager ones")
@@ -1714,7 +1930,7 @@ def phase_live_ransac(torch, seq, imgs, cfg, live):
                 eager_p99_ms=e_p99, bit_equal=same, syncs_per_frame=r["syncs"].count / frames,
                 steady_syncs_max=max(steady), ate=ate, final_drift=drift,
                 tracked_feature_frames=tracked, tracked_feature_frames_ransac_off=tracked_off,
-                launches=dict(zip(("fast", "klt", "gamma"), r["launches"])))
+                launches=dict(zip(LAUNCH_KEYS, r["launches"])))
 
 
 def _live_compare(torch, tag, cfg, rec):
@@ -1901,23 +2117,27 @@ def _sharded_setup(torch, tag, mesh, main):
     final, outs, metrics = run(states, frames)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    gamma_n = _counts()[2]
+    gamma_n, tri_n = _counts()[2:]
     t0 = time.perf_counter()
     sharding.fleet_metrics(final, mesh)
     torch.cuda.synchronize()
     allreduce_ms = 1e3 * (time.perf_counter() - t0)
     peak = torch.cuda.max_memory_allocated() / 2**30
     rec = dict(shards=len(final.shards), frame_ms=1e3 * seconds / T, seconds=seconds,
-               frame_steps_per_s=B * T / seconds, gamma_launches=gamma_n, peak_gib=peak,
+               frame_steps_per_s=B * T / seconds, gamma_launches=gamma_n,
+               triangulate_launches=tri_n, peak_gib=peak,
                capture_s=capture_s, allreduce_ms=allreduce_ms,
                **{k: float(v) for k, v in metrics.items()})
     log(f"[sharded] ({tag}) {len(final.shards)} shard(s) of {B // mesh.size} on "
         f"{[str(d) for d in mesh.devices]}, world {mesh.world_size}: {rec['frame_ms']:.2f} ms a "
-        f"frame, {rec['frame_steps_per_s']:.1f} frame-steps/s, gamma launches {gamma_n}, peak "
+        f"frame, {rec['frame_steps_per_s']:.1f} frame-steps/s, gamma launches {gamma_n}, "
+        f"triangulate {tri_n}, peak "
         f"memory {peak:.2f} GiB, capture and 2 warm-up frames {capture_s:.2f} s, all-reduce "
         f"{allreduce_ms:.3f} ms; residualized {int(metrics['total_residualized'])}")
     check(gamma_n == 2 * T * len(final.shards),
           f"[sharded] ({tag}) {gamma_n} gamma launches, expected {2 * T * len(final.shards)}")
+    check(tri_n == 2 * T * len(final.shards),
+          f"[sharded] ({tag}) {tri_n} triangulate launches, expected {2 * T * len(final.shards)}")
     return rec, final, outs, metrics
 
 
@@ -2011,7 +2231,8 @@ def phase_sharded(torch, main):
     for w in c["workers"]:
         log(f"[sharded] (c) rank {w['rank']} ({w['backend']}, shard {w['shards']} on "
             f"{w['devices']}): {w['frame_ms']:.2f} ms a frame, {w['frame_steps_per_s']:.1f} "
-            f"frame-steps/s, gamma launches {w['gamma_launches']}, peak memory "
+            f"frame-steps/s, gamma launches {w['gamma_launches']}, triangulate "
+            f"{w['triangulate_launches']}, peak memory "
             f"{w.get('peak_gib', float('nan')):.2f} GiB, capture {w['capture_s']:.2f} s, "
             f"all-reduce "
             f"{1e3 * w['allreduce_s']:.3f} ms, checkpoint save {w['save_s']:.3f} s, restore "
@@ -2023,6 +2244,8 @@ def phase_sharded(torch, main):
     check(c["ok"], f"[sharded] (c) not ok: {c['checks']}")
     check(all(w["gamma_launches"] == 2 * T for w in c["workers"]),
           f"[sharded] (c) gamma launches {[w['gamma_launches'] for w in c['workers']]}")
+    check(all(w["triangulate_launches"] == 2 * T for w in c["workers"]),
+          f"[sharded] (c) triangulate launches {[w['triangulate_launches'] for w in c['workers']]}")
     check(all(int(c["metrics"][k]) == int(b_metrics[k]) for k in COUNTERS),
           f"[sharded] (c) totals {c['metrics']} differ from (b)'s")
     return {"a": dict(a, bit_equal=a_equal), "b": b,
@@ -2062,19 +2285,20 @@ def phase_checkpoint(torch, main):
           "[checkpoint] the restored state differs from the saved one")
     resumed, _ = run(restored, tree_map(lambda x: x[half:], frames))
     torch.cuda.synchronize()
-    gamma_n = _counts()[2]
+    gamma_n, tri_n = _counts()[2:]
     same = dict(P=torch.equal(resumed.P, final.P),
                 p_I_G=torch.equal(resumed.imu.p_I_G, final.imu.p_I_G),
                 diag=_tree_equal(torch, resumed.diag, final.diag),
                 everything=_tree_equal(torch, resumed, final))
     log(f"[checkpoint] {final.P.shape[0]} filters: {half} frames, save {size / 2**20:.1f} MiB in "
         f"{save_s:.3f} s, restore onto the card {restore_s:.3f} s, resume {T - half} frames; "
-        f"bit-equal to the uninterrupted run: {same}; gamma launches {gamma_n}")
+        f"bit-equal to the uninterrupted run: {same}; gamma launches {gamma_n}, triangulate {tri_n}")
     check(same["P"] and same["p_I_G"] and same["diag"],
           f"[checkpoint] resumed run differs from the uninterrupted one: {same}")
     check(gamma_n == 2 * T, f"[checkpoint] {gamma_n} gamma launches, expected {2 * T}")
+    check(tri_n == 2 * T, f"[checkpoint] {tri_n} triangulate launches, expected {2 * T}")
     return dict(bytes=size, save_s=save_s, restore_s=restore_s, equal=same,
-                gamma_launches=gamma_n)
+                gamma_launches=gamma_n, triangulate_launches=tri_n)
 
 
 def phase_golden(torch):
@@ -2103,17 +2327,22 @@ def phase_golden(torch):
     frames = broadcast_frames(synthetic.to_frame_inputs(seq, torch.float32, device="cuda"), 1)
     _zero_counts()
     final, outs = msckf_filter.run_sequence(init_filter_state(cfg, imu, device="cuda"), frames, cfg)
-    gamma_n = _counts()[2]
+    gamma_n, tri_n = _counts()[2:]
+    T = frames.time.shape[0]
     p = outs.p_I_G[:, 0].double().cpu().numpy()
     gap = float(np.abs(p - gold["p"]).max())
     res = int(final.num_residualized[0])
     log(f"[golden] the same spec in f32 on the card: max position gap to the golden {gap:.4e} m "
         f"({'above' if gap > GOLDEN_F32_FINDING_M else 'within'} {GOLDEN_F32_FINDING_M} m), "
-        f"residualized {res} (golden {int(gold['num_residualized'])}), gamma launches {gamma_n}")
+        f"residualized {res} (golden {int(gold['num_residualized'])}), gamma launches {gamma_n}, "
+        f"triangulate {tri_n}")
     check(np.all(np.isfinite(p)), "[golden] f32 run not finite")
     check(gamma_n > 0, "[golden] the f32 run made no gamma kernel launches")
+    want_tri = triangulations_per_step(cfg) * T
+    check(tri_n == want_tri, f"[golden] {tri_n} triangulate launches, expected {want_tri}")
     return dict(cpu_max_gaps=errs, cpu_s=cpu_s, f32_max_pos_gap_m=gap, f32_residualized=res,
-                golden_residualized=int(gold["num_residualized"]), gamma_launches=gamma_n)
+                golden_residualized=int(gold["num_residualized"]), gamma_launches=gamma_n,
+                triangulate_launches=tri_n)
 
 
 def phase_image_precision(torch, seq, imgs, shared, main10):
@@ -2234,7 +2463,9 @@ def main(argv=None):
     usage = phase_build()
     per_shape = phase_kernel(torch)
     prng_check = phase_prng(torch)
+    tri_shapes = phase_triangulate(torch, usage)
     launches, main_path = phase_main(torch, args.batch, args.frames)
+    tri_main = main_path["triangulate_launches"]
     from msckf_mono_tpu_torch.core import filter as msckf_filter
     from msckf_mono_tpu_torch.ops import cuda_graph
 
@@ -2269,11 +2500,12 @@ def main(argv=None):
                    "image-precision": precision["launches"][k],
                    **{path: live[path]["launches"][k]
                       for path in ("live", "live-cli", "live-parity", "live-ransac")}}
-               for k in ("fast", "klt", "gamma")}
-    by_path["gamma"].update({
-        "sharded-a": sharded["a"]["gamma_launches"], "sharded-b": sharded["b"]["gamma_launches"],
-        "sharded-c": [w["gamma_launches"] for w in sharded["c"]["workers"]],
-        "checkpoint": ckpt["gamma_launches"], "golden-f32": golden["gamma_launches"]})
+               for k in LAUNCH_KEYS}
+    for k in ("gamma", "triangulate"):
+        by_path[k].update({
+            "sharded-a": sharded["a"][f"{k}_launches"], "sharded-b": sharded["b"][f"{k}_launches"],
+            "sharded-c": [w[f"{k}_launches"] for w in sharded["c"]["workers"]],
+            "checkpoint": ckpt[f"{k}_launches"], "golden-f32": golden[f"{k}_launches"]})
     # One filter-path frame step launches gamma once at each of its two shapes.
     main_shapes = per_shape[:2]
     gamma = {
@@ -2331,10 +2563,21 @@ def main(argv=None):
                                                        "bound_by", "max_abs_err", "per_level")},
         "registers": usage["klt_level"],
     }
+    triangulate = {
+        "name": "triangulate", "route": "cuda", "source": "msckf_mono_tpu_torch/csrc/triangulate.cu",
+        # the JAX package triangulates in plain JAX (core/triangulate.py)
+        "replaces": None,
+        "launches": tri_main, "launches_by_path": {"main": tri_main, **by_path["triangulate"]},
+        # the fleet's two calls of one frame step (marginalize, prune)
+        **{k: sum(s[k] for s in tri_shapes[:2]) for k in ("ms", "device_ms", "plain_ms", "bound_ms")},
+        "library_ms": None,
+        "per_shape": tri_shapes,
+        "registers": usage["triangulate"],
+    }
     # each kernel's device time a frame inside the replayed step (profiles of 3 frames)
     profiles = {"filter": graph["replay_profile"], "image": shared["graph"]["replay_profile"],
                 "live": live["live-graph"]["replay_profile"]}
-    for entry, key in ((gamma, "gamma"), (fast, "fast"), (klt, "klt")):
+    for entry, key in ((gamma, "gamma"), (fast, "fast"), (klt, "klt"), (triangulate, "triangulate")):
         entry["in_graph_per_frame"] = {path: prof["kernels"].get(key) for path, prof in profiles.items()}
     paths = {k: {kk: v for kk, v in r.items() if kk not in ("replay", "graph")}
              for k, r in (("image", shared), ("image-indep", indep))}
@@ -2345,7 +2588,7 @@ def main(argv=None):
                   "sharded": sharded, "checkpoint": ckpt, "golden": golden,
                   "image-precision": {k: v for k, v in precision.items() if k != "profile"}})
     paths["live-data"] = {"decoder": live["decoder"]}
-    print(json.dumps({"kernels": [gamma, fast, klt], "paths": paths}))
+    print(json.dumps({"kernels": [gamma, fast, klt, triangulate], "paths": paths}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

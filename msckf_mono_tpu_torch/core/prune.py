@@ -173,9 +173,8 @@ def prune_prep(state: FilterState, config: MsckfConfig):
     t_valid = torch.gather(tri_cand, 1, torder)
     t_obs = gather_rows(tracks.obs, torder)
     t_mask = gather_rows(tracks.obs_mask, torder) & t_valid[:, :, None]
-    motion_ok_t = triangulate.check_motion(t_obs, t_mask, q_CG, p_C_G, fcfg.translation_threshold)
-    p_new_t, tri_ok_t = triangulate.initialize_position(
-        t_obs, t_mask, q_CG, p_C_G, config.max_gn_cost_norm,
+    motion_ok_t, p_new_t, tri_ok_t = triangulate.triangulate_tracks(
+        t_obs, t_mask, q_CG, p_C_G, fcfg.translation_threshold, config.max_gn_cost_norm,
         n_iters=fcfg.lm_iters, n_trials=fcfg.lm_trials,
     )
     ok_t = t_valid & motion_ok_t & tri_ok_t & torch.all(torch.isfinite(p_new_t), dim=-1)

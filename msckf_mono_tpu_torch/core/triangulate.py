@@ -14,12 +14,17 @@ over arbitrary leading axes (filters x tracks):
 
 Window tensors (q_CG (..., N, 4), p_C_G (..., N, 3)) broadcast against the
 track axes of ``obs``.
+
+:func:`triangulate_tracks` runs both on the same tracks: the plain version
+(:func:`triangulate_tracks_plain`) on CPU tensors, the hand-written CUDA
+kernel (``ops/triangulate_cuda``) on CUDA tensors, with no fallback.
 """
 
 from __future__ import annotations
 
 import torch
 
+from msckf_mono_tpu_torch.ops import triangulate_cuda
 from msckf_mono_tpu_torch.ops.linalg import bmm_small, bmv, solve3x3
 from msckf_mono_tpu_torch.utils import quat
 
@@ -221,3 +226,54 @@ def initialize_position(obs, obs_mask, q_CG, p_C_G, max_gn_cost_norm,
 
     p_f_G = bmv(A0, final_position) + t0
     return p_f_G, is_valid
+
+
+def triangulate_tracks_plain(obs, obs_mask, q_CG, p_C_G, translation_threshold,
+                             max_gn_cost_norm, n_iters: int = 11, n_trials: int = 11):
+    """:func:`check_motion` and :func:`initialize_position` on the same
+    tracks. Returns (motion_ok, p_f_G, tri_ok)."""
+    motion_ok = check_motion(obs, obs_mask, q_CG, p_C_G, translation_threshold)
+    p_f_G, tri_ok = initialize_position(obs, obs_mask, q_CG, p_C_G, max_gn_cost_norm,
+                                        n_iters=n_iters, n_trials=n_trials)
+    return motion_ok, p_f_G, tri_ok
+
+
+def _check_tracks(obs, obs_mask, q_CG, p_C_G, n_iters, n_trials):
+    """Raise ValueError unless the window poses broadcast over trailing track
+    axes: their leading axes, left-padded with ones, equal the tracks' up to
+    some axis and are 1 after it."""
+    if (obs.dim() < 2 or obs.shape[-1] != 2 or tuple(obs_mask.shape) != tuple(obs.shape[:-1])
+            or q_CG.dim() < 2 or q_CG.shape[-1] != 4 or tuple(p_C_G.shape) != tuple(q_CG.shape[:-1]) + (3,)
+            or q_CG.shape[-2] != obs.shape[-2]):
+        raise ValueError(f"triangulate_tracks: shapes obs {tuple(obs.shape)}, obs_mask "
+                         f"{tuple(obs_mask.shape)}, q_CG {tuple(q_CG.shape)}, p_C_G "
+                         f"{tuple(p_C_G.shape)} are not (..., N, 2), (..., N), (..., N, 4), "
+                         "(..., N, 3)")
+    lead, wlead = tuple(obs.shape[:-2]), tuple(q_CG.shape[:-2])
+    if len(wlead) > len(lead):
+        raise ValueError(f"triangulate_tracks: window axes {wlead} exceed the track axes {lead}")
+    wlead = (1,) * (len(lead) - len(wlead)) + wlead
+    k = max((i + 1 for i, d in enumerate(wlead) if d != 1), default=0)
+    if any(w != t for w, t in zip(wlead[:k], lead[:k])):
+        raise ValueError(f"triangulate_tracks: window axes {tuple(q_CG.shape[:-2])} do not "
+                         f"broadcast over the trailing axes of the tracks' {lead}")
+    if n_iters < 0 or n_trials < 1:
+        raise ValueError(f"triangulate_tracks: n_iters {n_iters} < 0 or n_trials {n_trials} < 1")
+
+
+def triangulate_tracks(obs, obs_mask, q_CG, p_C_G, translation_threshold, max_gn_cost_norm,
+                       n_iters: int = 11, n_trials: int = 11):
+    """Motion gate and LM triangulation of tracks (obs (..., N, 2), obs_mask
+    (..., N)) against window poses (q_CG (..., N, 4), p_C_G (..., N, 3), which
+    broadcast over trailing track axes). Returns (motion_ok (...,), p_f_G
+    (..., 3), tri_ok (...,)) as :func:`triangulate_tracks_plain`.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel, which
+    raises on what it does not take (not float32 with a bool mask, not
+    contiguous, on two devices, more than 32 window slots)."""
+    _check_tracks(obs, obs_mask, q_CG, p_C_G, n_iters, n_trials)
+    if all(t.device.type == "cpu" for t in (obs, obs_mask, q_CG, p_C_G)):
+        return triangulate_tracks_plain(obs, obs_mask, q_CG, p_C_G, translation_threshold,
+                                        max_gn_cost_norm, n_iters, n_trials)
+    return triangulate_cuda.triangulate_tracks(obs, obs_mask, q_CG, p_C_G, translation_threshold,
+                                               max_gn_cost_norm, n_iters, n_trials)

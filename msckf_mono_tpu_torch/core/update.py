@@ -408,15 +408,12 @@ def marginalize_prep(state: FilterState, staged: StagedTracks, config: MsckfConf
     q_CG = state.window.q_CG[:, None]
     p_C_G = state.window.p_C_G[:, None]
 
-    motion_ok = triangulate.check_motion(staged.obs, staged.obs_mask, q_CG, p_C_G,
-                                         fcfg.translation_threshold)
+    motion_ok, p_f_G, tri_ok = triangulate.triangulate_tracks(
+        staged.obs, staged.obs_mask, q_CG, p_C_G, fcfg.translation_threshold,
+        config.max_gn_cost_norm, n_iters=fcfg.lm_iters, n_trials=fcfg.lm_trials,
+    )
     motion_ok = motion_ok | (state.num_residualized <= 3)[:, None]
     motion_ok = motion_ok & staged.valid
-
-    p_f_G, tri_ok = triangulate.initialize_position(
-        staged.obs, staged.obs_mask, q_CG, p_C_G, config.max_gn_cost_norm,
-        n_iters=fcfg.lm_iters, n_trials=fcfg.lm_trials,
-    )
     # Non-finite points are already rejected; sanitize them so masked-out
     # rows multiply to exact zeros downstream.
     tri_ok = tri_ok & torch.all(torch.isfinite(p_f_G), dim=-1)

@@ -34,7 +34,10 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-KERNELS = ("psd_gamma", "fast_nms", "klt_level")
+KERNELS = ("psd_gamma", "fast_nms", "klt_level", "triangulate")
+# Flags one source adds: the triangulation keeps the plain version's rounding
+# (no multiply-add contracted into an FMA).
+SOURCE_FLAGS = {"triangulate": ["-fmad=false"]}
 
 builds = 0
 cache_hits = 0
@@ -54,8 +57,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _flags(name: str) -> list[str]:
+    return NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(source(name).read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    digest = hashlib.sha256(source(name).read_bytes() + " ".join(_flags(name)).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}_{digest[:16]}.so"
 
 
@@ -74,7 +81,7 @@ def _start(name: str):
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source(name))]
+    cmd = [_nvcc(), *_flags(name), "-o", tmp, str(source(name))]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     return proc, tmp
 

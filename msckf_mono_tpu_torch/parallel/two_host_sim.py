@@ -16,8 +16,8 @@ layout alone.
 
 Each run prints a ``RESULT {json}`` line: the fleet's metrics, a trajectory
 checksum (sum of p^2 + |q| over every filter and frame, all-reduced), and
-its frame time, rate, gamma launches, peak memory, capture, all-reduce,
-save and restore times. The launcher's last line is one JSON object whose
+its frame time, rate, gamma and triangulation launches, peak memory,
+capture, all-reduce, save and restore times. The launcher's last line is one JSON object whose
 ``ok`` says that the two ranks agree exactly, that their totals and maxima
 equal the one-process run's exactly and their means and checksum within
 1e-6 relative, and that every resumed fleet equals its uninterrupted run
@@ -81,7 +81,7 @@ def run_fleet(mesh, batch: int, frames: int, ckpt: str) -> dict:
     from msckf_mono_tpu_torch.core.init import ground_truth_init
     from msckf_mono_tpu_torch.core.types import _leaves, tree_map
     from msckf_mono_tpu_torch.data import synthetic
-    from msckf_mono_tpu_torch.ops import psd_cuda
+    from msckf_mono_tpu_torch.ops import psd_cuda, triangulate_cuda
     from msckf_mono_tpu_torch.parallel import checkpoint, montecarlo, sharding
     from msckf_mono_tpu_torch.utils.config import serving_config
 
@@ -116,11 +116,13 @@ def run_fleet(mesh, batch: int, frames: int, ckpt: str) -> dict:
     states = fleet()
     _sync(mesh)
     launches = psd_cuda.gamma_psd.launches
+    tri_launches = triangulate_cuda.triangulate_tracks.launches
     t0 = time.perf_counter()
     final, outs, metrics = run(states, bframes)
     _sync(mesh)
     seconds = time.perf_counter() - t0
     rec["gamma_launches"] = psd_cuda.gamma_psd.launches - launches
+    rec["triangulate_launches"] = triangulate_cuda.triangulate_tracks.launches - tri_launches
     rec.update(seconds=seconds, frame_ms=1e3 * seconds / frames,
                frame_steps_per_s=batch * frames / seconds)
     rec.update({k: float(v) for k, v in metrics.items()})

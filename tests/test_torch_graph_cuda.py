@@ -206,7 +206,7 @@ def test_launch_bookkeeping_on_replay(card):
     before = counts()
     g = cuda_graph.StepGraph(fn, carry, (x,))
     assert counts() == before, "warm-up and capture count no launch"
-    assert g.delta == [0, 1, 0]
+    assert g.delta == [0, 1, 0, 0]
     for _ in range(3):
         g(carry, x)
     assert counts()[0] - before[0] == 3
