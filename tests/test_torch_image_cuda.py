@@ -19,6 +19,10 @@ and skips without a card. This file imports neither JAX nor the JAX package:
   the variant without shared memory; the launcher's plan fits the card for
   every odd window of 3..151 px. Its patch copies are 16, 8 or 4 bytes a
   lane, by the rows' alignment.
+* At Bi = 64, on 64 robots' own rendered frames (robot b sees the loop's
+  frame 5b + t, as the multi-robot benchmark cell): FAST equals its plain
+  version bit for bit; KLT, from each robot's own detected corners through
+  the four pyramid levels, keeps the rules above.
 * The wrappers raise on float64, on CPU/CUDA mixes and on non-contiguous
   input, and count their launches.
 """
@@ -28,13 +32,14 @@ import pytest
 import torch
 
 from msckf_mono_tpu_torch.data import render, synthetic
-from msckf_mono_tpu_torch.frontend import klt
+from msckf_mono_tpu_torch.frontend import detect, klt
 from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda
 from msckf_mono_tpu_torch.utils.config import MsckfConfig
 
 pytestmark = pytest.mark.cuda
 
 KLT_ATOL = 0.05
+ROBOTS, PHASE_STEP = 64, 5
 
 
 @pytest.fixture
@@ -51,6 +56,20 @@ def frames():
     _, world = synthetic.generate(cfg, n_frames=6, seed=0, pixel_noise=0.0, n_landmarks=500,
                                   return_world=True)
     return np.stack([render.render_frame(cfg, world, i) for i in (4, 5)])
+
+
+@pytest.fixture(scope="module")
+def robots():
+    """(2, 64, 480, 752): robot b's frames t = 0 and 1, the loop's frames
+    5b and 5b + 1, rendered on the host (the check is inside: a module
+    fixture is made before the function-scoped ``card``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    cfg = MsckfConfig()
+    _, world = synthetic.generate(cfg, n_frames=PHASE_STEP * (ROBOTS - 1) + 2, seed=0,
+                                  pixel_noise=0.0, n_landmarks=500, return_world=True)
+    return np.stack([[render.render_frame(cfg, world, PHASE_STEP * b + t) for b in range(ROBOTS)]
+                     for t in (0, 1)]).astype(np.float32)
 
 
 def _smooth_image(rng, shape, octaves=4):
@@ -349,3 +368,33 @@ def test_klt_kernel_wide_windows(card, window):
     got, want = _klt_pair(card, (img0[None], img1[None]), pts, pred, valid, window)
     _assert_klt_close(got, want)
     assert bool(want[1].any())
+
+
+def test_fast_kernel_on_64_robots(card, robots):
+    """(64, 480, 752) of 64 robots' own frames: one launch, bit for bit the
+    plain version; each robot finds corners of its own."""
+    want = _fast_once(torch.as_tensor(robots[0], device=card))
+    assert bool(((want > 0).sum((1, 2)) > 20).all())
+    assert not torch.equal(want[0] > 0, want[1] > 0)
+
+
+def test_klt_kernel_on_64_robots(card, robots):
+    """Each robot's features at its own corners of frame 0 (FAST +
+    Shi-Tomasi, as the front-end detects them), predicted with noise,
+    tracked into its frame 1 at every level of its own pyramid, top level
+    first, with the front-end's window, against the plain version."""
+    img0, img1 = (torch.as_tensor(robots[t], device=card) for t in (0, 1))
+    pyr0, pyr1 = klt.build_pyramid(img0, 3), klt.build_pyramid(img1, 3)
+    xy, _, valid = detect.detect_features(
+        img0, torch.zeros(ROBOTS, 100, dtype=torch.bool, device=card))
+    assert bool((valid.sum(1) > 20).all())
+    rng = np.random.default_rng(64)
+    pred = xy + torch.as_tensor(rng.normal(0, 1.0, size=tuple(xy.shape)), dtype=torch.float32,
+                                device=card)
+    for lvl in (3, 2, 1, 0):
+        s = 2.0 ** lvl
+        got, want = _klt_pair(card, (pyr0[lvl].cpu().numpy(), pyr1[lvl].cpu().numpy()),
+                              (xy / s).cpu().numpy(), (pred / s).cpu().numpy(),
+                              valid.cpu().numpy(), 21, eps=0.03, thr=1e-5)
+        _assert_klt_close(got, want)
+        assert int(want[1].sum()) > 10 * ROBOTS

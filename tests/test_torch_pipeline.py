@@ -12,7 +12,14 @@ pipeline, from the same initial states:
 * the shared-camera fleet (B = 2 distinct initial states, one image stream)
   and independent streams (B = 2) against JAX's vmapped runners, f64;
 * the f32 serving configuration: positions within 2e-5 m, as the filter
-  slice's f32 serving test (tests/test_torch_filter.py), counters equal.
+  slice's f32 serving test (tests/test_torch_filter.py), counters equal;
+* independent streams that fly one loop from phases a frame apart, each
+  with its own images, IMU and initial state (the multi-robot benchmark
+  cell's traffic, cut small): each stream's positions, decisions and
+  pyramids equal that stream run alone at B = Bi = 1 (f64, 1e-9), and the
+  frozen plain reference's ``batched_run_images`` on the same streams; a
+  profiled step at Bi = B holds ``step.frontend`` and the ``frontend.*``
+  stages inside it.
 """
 
 import inspect
@@ -29,12 +36,19 @@ from msckf_mono_tpu.core.init import ground_truth_init as j_gt_init
 from msckf_mono_tpu.core.types import init_filter_state as j_init_state
 from msckf_mono_tpu.frontend import functional as jfunc
 from msckf_mono_tpu_torch.core import pipeline as tpipe
-from msckf_mono_tpu_torch.core.types import filter_state_to_numpy
+from msckf_mono_tpu_torch.core.init import ground_truth_init as t_gt_init
+from msckf_mono_tpu_torch.core.types import filter_state_to_numpy, tree_map
 from msckf_mono_tpu_torch.data import render as trender
 from msckf_mono_tpu_torch.data import synthetic as tsyn
 from msckf_mono_tpu_torch.frontend import functional as tfunc
+from msckf_mono_tpu_torch.ops import cuda_graph
 from msckf_mono_tpu_torch.parallel import montecarlo as tmc
 from msckf_mono_tpu_torch.utils import prng
+from portbench.reference.msckf.core import pipeline as rpipe
+from portbench.reference.msckf.core.init import ground_truth_init as r_gt_init
+from portbench.reference.msckf.frontend import functional as rfunc
+from portbench.reference.msckf.parallel import montecarlo as rmc
+from portbench.reference.msckf.utils import config as rcfg
 
 from tests import _torch_port as tp
 
@@ -229,3 +243,128 @@ def test_gyro_dR_matches_jax(world):
 @pytest.mark.parametrize("fn", [tfunc.init_frontend_state])
 def test_entry_points_default_to_cuda(fn):
     assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+STREAMS, PHASE = 3, 1
+STAGES = ["step.frontend", "frontend.pyramid", "frontend.track", "frontend.detect",
+          "frontend.dedup"]
+
+
+@pytest.fixture(scope="module")
+def streams():
+    """STREAMS robots on one loop, robot b PHASE·b frames behind robot 0:
+    the loop's sequence, its rendered frames, (T, STREAMS) loop-frame
+    indices and each robot's true start (lists of (STREAMS, ...))."""
+    _, tc = _configs(False)
+    n = T + PHASE * (STREAMS - 1)
+    seq, w = tsyn.generate(tc, n_frames=n, seed=0, pixel_noise=0.0, n_landmarks=500,
+                           return_world=True)
+    loop = np.stack([trender.render_frame(tc, w, i) for i in range(n)])
+    index = np.arange(T)[:, None] + PHASE * np.arange(STREAMS)[None, :]
+    i0 = PHASE * np.arange(STREAMS) * seq.imu_omega.shape[1]
+    starts = dict(p_I_G=w.p_seq[i0].tolist(), q_IG=w.q_seq[i0].tolist(),
+                  v_I_G=((w.p_seq[i0 + 1] - w.p_seq[i0]) / 0.005).tolist(),
+                  b_g=seq.b_g.tolist(), b_a=seq.b_a.tolist())
+    return seq, loop, index, starts
+
+
+def _stream_frames(mod, seq, loop, index):
+    """``mod``'s ImageFrameInput of the streams: images (T, S, H, W), the
+    rest (T, S, ...), each stream's own slice of the loop."""
+    def f(x, dt=torch.float64):
+        return torch.as_tensor(np.asarray(x)[index]).to(dt)
+
+    return mod.ImageFrameInput(
+        image=f(loop), imu_omega=f(seq.imu_omega), imu_acc=f(seq.imu_acc), imu_dt=f(seq.imu_dt),
+        state_id=f(np.arange(1, loop.shape[0] + 1), torch.int32), time=f(seq.time),
+        frame_valid=f(np.ones(loop.shape[0], bool), torch.bool))
+
+
+def _port_streams(streams, key=5):
+    seq, loop, index, starts = streams
+    _, tc = _configs(False)
+    tfc = tfunc.FrontendConfig(**FRONTEND)
+    imu = t_gt_init(**starts, dtype=torch.float64, device="cpu")
+    fleet = tmc.make_fleet(tc, imu, STREAMS, prng.PRNGKey(key), dtype=torch.float64, device="cpu")
+    return tc, tfc, fleet, _stream_frames(tpipe, seq, loop, index)
+
+
+def _copy(run):
+    """A run's results, copied out of the static buffers that the CPU path
+    updates in place."""
+    return cuda_graph.clone(run)
+
+
+def test_independent_streams_do_not_cross(streams):
+    tc, tfc, fleet, frames = _port_streams(streams)
+    run = tpipe.batched_run_images(tc, tfc)
+    final, ffinal, outs = _copy(run(_copy(fleet), tfunc.init_frontend_state(
+        H, W, tfc, STREAMS, STREAMS, torch.float64, device="cpu"), frames))
+    assert np.all(np.isfinite(outs.p_I_G.numpy())) and int(ffinal.valid.sum()) > 20 * STREAMS
+    for b in range(STREAMS):
+        one = tree_map(lambda x: x[b:b + 1].clone(), fleet)
+        fin1, ffin1, outs1 = _copy(run(one, tfunc.init_frontend_state(
+            H, W, tfc, 1, 1, torch.float64, device="cpu"),
+            tree_map(lambda x: x[:, b:b + 1], frames)))
+        np.testing.assert_allclose(outs.p_I_G[:, b].numpy(), outs1.p_I_G[:, 0].numpy(),
+                                   rtol=0, atol=1e-9, err_msg=f"stream {b}")
+        for k in ("num_residualized", "cam_count"):
+            np.testing.assert_array_equal(getattr(outs, k)[:, b].numpy(),
+                                          getattr(outs1, k)[:, 0].numpy(), err_msg=k)
+        for k, v in vars(final.diag).items():
+            assert int(v[b]) == int(getattr(fin1.diag, k)[0]), k
+        for k in ("ids", "valid", "next_id"):
+            np.testing.assert_array_equal(getattr(ffinal, k)[b].numpy(),
+                                          getattr(ffin1, k)[0].numpy(), err_msg=k)
+        for lvl, (a, one_lvl) in enumerate(zip(ffinal.pyramid, ffin1.pyramid)):
+            np.testing.assert_allclose(a[b].numpy(), one_lvl[0].numpy(), rtol=0, atol=1e-9,
+                                       err_msg=f"stream {b} pyramid level {lvl}")
+    # the streams are not one stream: each robot sees its own images
+    assert not np.allclose(outs.p_I_G[:, 0].numpy(), outs.p_I_G[:, 1].numpy(), atol=1e-3)
+    assert not torch.equal(ffinal.pyramid[1][0], ffinal.pyramid[1][1])
+
+
+def test_independent_streams_match_the_plain_reference(streams):
+    seq, loop, index, starts = streams
+    tc, tfc, fleet, frames = _port_streams(streams)
+    _, _, outs = _copy(tpipe.batched_run_images(tc, tfc)(fleet, tfunc.init_frontend_state(
+        H, W, tfc, STREAMS, STREAMS, torch.float64, device="cpu"), frames))
+    f, sh = dict(tp.TINY_FILTER, max_track_length=6), dict(tp.TINY_SHAPES)
+    rc = rcfg.MsckfConfig(filter=rcfg.FilterConfig(**f), shapes=rcfg.ShapeConfig(**sh))
+    rfc = rfunc.FrontendConfig(**FRONTEND)
+    rfleet = rmc.make_fleet(rc, r_gt_init(**starts, dtype=torch.float64, device="cpu"), STREAMS,
+                            prng.PRNGKey(5), dtype=torch.float64, device="cpu")
+    _, _, routs = rpipe.batched_run_images(rc, rfc)(
+        rfleet, rfunc.init_frontend_state(H, W, rfc, STREAMS, STREAMS, torch.float64,
+                                          device="cpu"),
+        _stream_frames(rpipe, seq, loop, index))
+    np.testing.assert_allclose(outs.p_I_G.numpy(), routs.p_I_G.numpy(), rtol=0, atol=1e-9)
+    np.testing.assert_array_equal(outs.num_residualized.numpy(), routs.num_residualized.numpy())
+
+
+def _inside(event, name):
+    p = event.cpu_parent
+    while p is not None:
+        if p.name == name:
+            return True
+        p = p.cpu_parent
+    return False
+
+
+def test_independent_streams_step_holds_the_frontend_stages(streams):
+    """Under a profiler one eager step at Bi = B opens ``step.frontend``
+    with the four ``frontend.*`` stages inside it."""
+    tc, tfc, fleet, frames = _port_streams(streams)
+    fs = tfunc.init_frontend_state(H, W, tfc, STREAMS, STREAMS, torch.float64, device="cpu")
+    frame = tree_map(lambda x: x[0], frames)
+    assert frame.image.shape == (STREAMS, H, W)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        tpipe.step((fleet, fs), frame, tc, tfc)
+    ranges = {}
+    for e in prof.events():
+        if e.name in STAGES:
+            ranges.setdefault(e.name, []).append(e)
+    assert sorted(ranges) == sorted(STAGES)
+    assert all(len(v) == 1 for v in ranges.values())
+    for name in STAGES[1:]:
+        assert _inside(ranges[name][0], "step.frontend"), name
