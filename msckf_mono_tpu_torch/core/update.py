@@ -164,10 +164,14 @@ def gating_test_all(H_all, r_all, P, dof, sigma2, config: MsckfConfig):
     H_all: (B, S, R, D); r_all: (B, S, R); P: (B, D, D); dof: (B, S) int;
     sigma2: (B,). Returns bool (B, S). ``gating_precision`` is not consulted:
     the gate is full f32 (or the state's dtype) on every device.
+
+    H·P is one product per filter with the staged tracks folded into its rows
+    (the JAX package's ``"srd,de->sre"``): a broadcast ``P[:, None]`` would be
+    copied once per staged track before the batched product.
     """
     dtype = H_all.dtype
-    R = H_all.shape[-2]
-    HP = torch.matmul(H_all, P[:, None])                              # (B, S, R, D)
+    B, S, R, D = H_all.shape
+    HP = torch.bmm(H_all.reshape(B, S * R, D), P).reshape(B, S, R, D)
     Smat = torch.matmul(HP, H_all.transpose(-1, -2))
     Smat = Smat + sigma2[:, None, None, None] * torch.eye(R, dtype=dtype, device=H_all.device)
     gamma = psd_cuda.gamma_psd(Smat.contiguous(), r_all.contiguous())

@@ -223,6 +223,88 @@ def test_gating_test_all_decisions_match_jax(world):
     assert got.any() and not got.all()
 
 
+@pytest.mark.parametrize("m_cap", [None, 2], ids=["full_width", "prune_width"])
+def test_gating_test_all_keeps_each_filters_P(world, m_cap, monkeypatch):
+    """B = 3 filters, each with its own SPD P, staged tracks and σ²: the gate's
+    decisions equal JAX's per filter, and each S it forms is that filter's own
+    H·P·Hᵀ + σ²I (a fold that mixed filters' P or rows would pass at B = 1)."""
+    arrays, staged, p_f = _row_stack_inputs(world)
+    st = tp.port_state(arrays)
+    win_b = st.window.replace(q_CG=st.window.q_CG[:, None], p_C_G=st.window.p_C_G[:, None])
+    H1, r1, _, _ = tupd.track_projected_rows(_t(staged["obs"]), _t(staged["obs_mask"]), _t(p_f), win_b,
+                                          st.imu.g[:, None], TC, m_cap=m_cap)
+    M = staged["obs"].shape[2] if m_cap is None else m_cap
+    dof1 = torch.clamp(torch.as_tensor(staged["obs_mask"].sum(-1)), max=M) - 1
+    scale = torch.ones(S, dtype=torch.float64)
+    scale[::2] = 30.0
+    r1 = r1 * scale[None, :, None]
+    # filter b sees the staged tracks rolled by b, its own P and its own σ²
+    H = torch.cat([torch.roll(H1, b, dims=1) for b in range(3)])
+    r = torch.cat([torch.roll(r1, b, dims=1) for b in range(3)])
+    dof = torch.cat([torch.roll(dof1, b, dims=1) for b in range(3)])
+    gen = torch.Generator().manual_seed(16)
+    P0 = st.P[0]
+    D = P0.shape[0]
+    Ps = []
+    for c in (1.0, 0.4, 2.5):
+        A = torch.randn(D, D, generator=gen, dtype=torch.float64)
+        Ps.append(c * P0 + 1e-3 * float(P0.diagonal().mean()) * (A @ A.T) / D)
+    P = torch.stack(Ps)
+    sigma2 = st.meas_sigma2[0] * torch.tensor([1.0, 0.5, 2.0], dtype=torch.float64)
+
+    formed = []
+
+    def recording_gamma(Smat, r_):
+        formed.append(Smat.clone())
+        return tupd.psd_cuda.gamma_psd_plain(Smat, r_)
+
+    monkeypatch.setattr(tupd.psd_cuda, "gamma_psd", recording_gamma)
+    got = tupd.gating_test_all(H, r, P, dof, sigma2, TC).numpy()
+    want = np.asarray(jax.vmap(lambda h, rr, p, d, s2: jupd.gating_test_all(h, rr, p, d, s2, JC))(
+        _j(H), _j(r), _j(P), _j(dof), _j(sigma2)))
+    np.testing.assert_array_equal(got, want)
+    assert got.any() and not got.all()
+
+    (Smat,) = formed
+    R = H.shape[-2]
+    for b in range(3):
+        for s in range(S):
+            h = H[b, s]
+            explicit = h @ P[b] @ h.T + sigma2[b] * torch.eye(R, dtype=torch.float64)
+            np.testing.assert_allclose(Smat[b, s].numpy(), explicit.numpy(), rtol=0, atol=1e-12)
+
+
+def test_gating_test_all_never_copies_P_per_track():
+    """H·P is one product per filter: no tensor of the gate holds B·C·D·D
+    elements (P broadcast over the staged tracks), while P itself, B·D·D, may."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    B, C, R, D = 2, 8, 1, TC.shapes.state_dim
+    gen = torch.Generator().manual_seed(16)
+    A = torch.randn(B, D, D, generator=gen, dtype=torch.float64)
+    P = A @ A.mT / D + torch.eye(D, dtype=torch.float64)
+    H = torch.randn(B, C, R, D, generator=gen, dtype=torch.float64)
+    r = torch.randn(B, C, R, generator=gen, dtype=torch.float64)
+    dof = torch.ones((B, C), dtype=torch.int32)
+    sigma2 = torch.ones(B, dtype=torch.float64)
+
+    class Sizes(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.numels = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            self.numels += [t.numel() for t in torch.utils._pytree.tree_leaves(out)
+                            if isinstance(t, torch.Tensor)]
+            return out
+
+    with Sizes() as sizes:
+        gate = tupd.gating_test_all(H, r, P, dof, sigma2, TC)
+    assert gate.shape == (B, C)
+    assert sizes.numels and max(sizes.numels) < B * C * D * D
+
+
 def test_measurement_update_and_marginalize_match_jax(world):
     arrays, staged = world
     st = tp.port_state(arrays)
