@@ -74,10 +74,31 @@ def _q_CI(config: MsckfConfig, dtype, device):
     return torch.as_tensor(config.camera.q_CI, dtype=dtype, device=device)
 
 
-def _budget(uv, ids, valid, F):
-    """The first F valid entries of each filter's (B, N) lists, in order."""
-    order = torch.argsort((~valid).to(torch.uint8), dim=1, stable=True)[:, :F]
-    return functional._take(uv, order), torch.gather(ids, 1, order), torch.gather(valid, 1, order)
+def frame_input(feats: functional.FrontendOutput, frame: ImageFrameInput,
+                config: MsckfConfig) -> FrameInput:
+    """The filter's input of one frame, for the image fleets and the live
+    frame alike: the front-end's tracked and new lists, each budgeted to
+    ``max_features_per_frame`` (the first valid entries, in order), and the
+    frame's IMU block, state id, time and validity in the lists' dtype."""
+    F = config.shapes.max_features_per_frame
+    dtype = feats.tracked_uv.dtype
+    t_valid, t_uv, t_ids = functional.first_valid(feats.tracked_valid, F, feats.tracked_uv,
+                                                  feats.tracked_ids)
+    n_valid, n_uv, n_ids = functional.first_valid(feats.new_valid, F, feats.new_uv, feats.new_ids)
+    return FrameInput(
+        imu_omega=frame.imu_omega.to(dtype),
+        imu_acc=frame.imu_acc.to(dtype),
+        imu_dt=frame.imu_dt.to(dtype),
+        tracked_uv=t_uv,
+        tracked_ids=t_ids,
+        tracked_valid=t_valid,
+        new_uv=n_uv,
+        new_ids=n_ids,
+        new_valid=n_valid,
+        state_id=frame.state_id,
+        time=frame.time.to(dtype),
+        frame_valid=frame.frame_valid,
+    )
 
 
 def step(carry: tuple, frame: ImageFrameInput, config: MsckfConfig, fcfg: FrontendConfig):
@@ -90,25 +111,8 @@ def step(carry: tuple, frame: ImageFrameInput, config: MsckfConfig, fcfg: Fronte
     with stage("step.frontend"):
         dR = _gyro_dR(frame, state.imu.b_g, q_CI, dtype)
         fstate, feats = functional.frontend_step(fstate, frame.image.to(dtype), dR, config, fcfg)
+        fin = frame_input(feats, frame, config)
 
-        F = config.shapes.max_features_per_frame
-        t_uv, t_ids, t_valid = _budget(feats.tracked_uv, feats.tracked_ids, feats.tracked_valid, F)
-        n_uv, n_ids, n_valid = _budget(feats.new_uv, feats.new_ids, feats.new_valid, F)
-
-    fin = FrameInput(
-        imu_omega=frame.imu_omega.to(dtype),
-        imu_acc=frame.imu_acc.to(dtype),
-        imu_dt=frame.imu_dt.to(dtype),
-        tracked_uv=t_uv.to(dtype),
-        tracked_ids=t_ids,
-        tracked_valid=t_valid,
-        new_uv=n_uv.to(dtype),
-        new_ids=n_ids,
-        new_valid=n_valid,
-        state_id=frame.state_id,
-        time=frame.time.to(dtype),
-        frame_valid=frame.frame_valid,
-    )
     state, out = msckf_filter.step(state, fin, config)
     return (state, fstate), out
 

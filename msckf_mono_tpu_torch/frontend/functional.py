@@ -5,7 +5,11 @@ The per-frame front-end of the reference's TrackHandler
 predict by the gyro homography -> pyramidal KLT -> reject -> undistort ->
 detect new corners in unoccupied grid cells -> carry one feature per cell.
 Feature ids follow the reference's monotone scheme (next id incremented once
-per frame, then once per new feature, corner_detector.cpp:407-411).
+per frame, then once per new feature, corner_detector.cpp:407-411). The
+stages (:func:`pyramid`, :func:`track`, :func:`tracked_outputs`,
+:func:`detect_new`, :func:`dedup`) are also the live driver's,
+``frontend/track_handler.TrackHandler``: each piece of the front-end's math
+is written once.
 
 Every tensor carries a leading filter-batch axis B. Images and the pyramid
 carried in the state are ``(Bi, H, W)`` with Bi = 1 for a camera shared by
@@ -135,85 +139,111 @@ def frontend_step(
     ``frontend.detect`` and ``frontend.dedup`` (``eval/profile.stage``).
 
     img: (Bi, H, W); dR: (B, 3, 3), the camera-frame rotation over the
-    inter-frame interval (the gyro integral, corner_detector.cpp:220-276).
+    inter-frame interval (the gyro integral, corner_detector.cpp:220-276), or
+    (3, 3) for one rotation of the whole batch.
     """
     cam = config.camera
     dtype = state.pts.dtype
-    dev = state.pts.device
-    F = fcfg.max_features
-    B = state.pts.shape[0]
-    H, W = img.shape[-2:]
-    K, K_inv = _camera_arrays(config, dtype, dev)
+    K, K_inv = _camera_arrays(config, dtype, state.pts.device)
+    img = img.to(dtype)
+    cur_pyr = pyramid(img, fcfg)
 
-    with stage("frontend.pyramid"):
-        img = img.to(dtype)
-        cur_pyr = klt.build_pyramid(img, fcfg.max_level, precision=fcfg.image_precision)
-
-    # ---- track (corner_detector.cpp:320-394) ----
     with stage("frontend.track"):
-        Hm = K @ dR.to(dtype) @ K_inv                                           # (B, 3, 3)
-        ph = torch.cat([state.pts, torch.ones((B, F, 1), dtype=dtype, device=dev)], dim=-1)
-        ph = ph @ Hm.transpose(-1, -2)
-        denom = torch.where(torch.abs(ph[..., 2:3]) < 1e-12,
-                            torch.full_like(ph[..., 2:3], 1e-12), ph[..., 2:3])
-        pred = ph[..., :2] / denom
+        pts, status = track(state.pyramid, cur_pyr, state.pts, state.valid & state.has_prev[:, None],
+                            dR, K, K_inv, fcfg)
+        tracked_uv, tracked_ids = tracked_outputs(pts, status, state.ids, K, cam.distortion_coeffs,
+                                                  cam.distortion_model)
 
-        track_valid = state.valid & state.has_prev[:, None]
-        pts, status = klt.track_features_pyr(
-            state.pyramid, cur_pyr, state.pts, pred, track_valid,
-            window_size=fcfg.window_size, max_iters=fcfg.max_iters,
-        )
-        status = klt.reject_outliers(state.pts, pts, status, (H, W), max_flow=fcfg.max_flow_px)
+    new_xy, new_uv, new_ids, new_valid, next_id = detect_new(
+        img, pts, status, state.next_id, K, cam.distortion_coeffs, cam.distortion_model, fcfg)
+    out = FrontendOutput(tracked_uv=tracked_uv, tracked_ids=tracked_ids, tracked_valid=status,
+                         new_uv=new_uv, new_ids=new_ids, new_valid=new_valid)
 
-        tracked_uv = undistort.undistort_points(pts, K, cam.distortion_coeffs, cam.distortion_model)
-        minus1 = torch.full((), -1, dtype=torch.int32, device=dev)
-        tracked_ids = torch.where(status, state.ids, minus1)
+    cpts, cids, cvalid = dedup((pts, tracked_ids, status), (new_xy, new_ids, new_valid),
+                               *img.shape[-2:], fcfg)
+    new_state = FrontendState(pyramid=cur_pyr, pts=cpts, ids=cids, valid=cvalid, next_id=next_id,
+                              has_prev=torch.ones_like(state.has_prev))
+    return new_state, out
 
-    # ---- detect new corners in unoccupied cells (cd.cpp:396-429) ----
+
+# ---- the stages, shared by frontend_step and frontend/track_handler.TrackHandler ----
+# Each takes (B, F, ...) lists and (Bi, H, W) images. All but track open their
+# frontend.* range; track's is opened by its caller, around whatever the
+# caller does with the tracks before tracked_outputs (the live driver's RANSAC).
+
+def pyramid(img, fcfg: FrontendConfig):
+    """The image pyramid of (Bi, H, W) ``img`` (``frontend.pyramid``)."""
+    with stage("frontend.pyramid"):
+        return klt.build_pyramid(img, fcfg.max_level, precision=fcfg.image_precision)
+
+
+def predict(pts, dR, K, K_inv):
+    """Rotation-only homography prediction H = K·dR·K⁻¹ (cd.cpp:246-276) of
+    (B, F, 2) points; dR (B, 3, 3) or (3, 3)."""
+    Hm = K @ dR.to(K.dtype) @ K_inv
+    ph = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1) @ Hm.transpose(-1, -2)
+    z = ph[..., 2:3]
+    return ph[..., :2] / torch.where(torch.abs(z) < 1e-12, torch.full_like(z, 1e-12), z)
+
+
+def track(prev_pyr, cur_pyr, pts, valid, dR, K, K_inv, fcfg: FrontendConfig):
+    """KLT of the ``valid`` (B, F) points ``pts`` from ``prev_pyr`` into
+    ``cur_pyr``, started at their prediction by dR, then the reference's
+    rejection (corner_detector.cpp:320-394). Returns (pts, status)."""
+    new_pts, status = klt.track_features_pyr(
+        prev_pyr, cur_pyr, pts, predict(pts, dR, K, K_inv), valid,
+        window_size=fcfg.window_size, max_iters=fcfg.max_iters,
+    )
+    return new_pts, klt.reject_outliers(pts, new_pts, status, tuple(cur_pyr[0].shape[-2:]),
+                                        max_flow=fcfg.max_flow_px)
+
+
+def tracked_outputs(pts, status, ids, K, dist_coeffs, dist_model):
+    """The tracked list: (undistorted normalized uv, ids), zero and -1 where
+    ``status`` is off."""
+    uv = undistort.undistort_points(pts, K, dist_coeffs, dist_model)
+    return torch.where(status[..., None], uv, 0.0), torch.where(status, ids, -1)
+
+
+def detect_new(img, pts, status, next_id, K, dist_coeffs, dist_model, fcfg: FrontendConfig):
+    """New corners in the grid cells that no tracked point holds
+    (cd.cpp:396-429; ``frontend.detect``), budgeted to ``max_features``, with
+    monotone ids: +1 once per frame, then sequential (cd.cpp:407-411).
+    Returns (pixel xy, undistorted uv, ids, valid, next next_id)."""
     with stage("frontend.detect"):
+        H, W = img.shape[-2:]
         n_cells = fcfg.n_grid_rows * fcfg.n_grid_cols
         cell = _cells(pts, H, W, fcfg.n_grid_rows, fcfg.n_grid_cols)
-        occupied = torch.zeros((B, n_cells + 1), dtype=torch.bool, device=dev)
+        occupied = torch.zeros((pts.shape[0], n_cells + 1), dtype=torch.bool, device=pts.device)
         occupied.scatter_(1, torch.where(status, cell, n_cells), True)
-        occupied = occupied[:, :n_cells]
-
         xy, _score, det_valid = detect.detect_features(
-            img, occupied, fcfg.n_grid_rows, fcfg.n_grid_cols,
-            fcfg.fast_threshold, fcfg.detection_threshold,
-            st_precision=fcfg.image_precision,
+            img, occupied[:, :n_cells], fcfg.n_grid_rows, fcfg.n_grid_cols,
+            fcfg.fast_threshold, fcfg.detection_threshold, st_precision=fcfg.image_precision,
         )
-        order = torch.argsort((~det_valid).to(torch.uint8), dim=1, stable=True)[:, :F]
-        new_valid = torch.gather(det_valid, 1, order)
-        new_xy = torch.where(new_valid[..., None], _take(xy, order), 0.0).to(dtype)
-        # monotone ids: +1 once per frame, then sequential (cd.cpp:407-411)
-        n_valid = new_valid.to(torch.int32)
+        valid, xy = first_valid(det_valid, fcfg.max_features, xy)
+        xy = torch.where(valid[..., None], xy, 0.0).to(pts.dtype)
+        n_valid = valid.to(torch.int32)
         seq = torch.cumsum(n_valid, dim=1, dtype=torch.int32) - 1
-        new_ids = torch.where(new_valid, state.next_id[:, None] + 1 + seq, minus1)
-        next_id = state.next_id + 1 + torch.sum(n_valid, dim=1, dtype=torch.int32)
-        new_uv = undistort.undistort_points(new_xy, K, cam.distortion_coeffs, cam.distortion_model)
+        ids = torch.where(valid, next_id[:, None] + 1 + seq, -1)
+        next_id = next_id + 1 + torch.sum(n_valid, dim=1, dtype=torch.int32)
+        uv = undistort.undistort_points(xy, K, dist_coeffs, dist_model)
+        return xy, torch.where(valid[..., None], uv, 0.0), ids, valid, next_id
 
-        out = FrontendOutput(
-            tracked_uv=torch.where(status[..., None], tracked_uv, 0.0).to(dtype),
-            tracked_ids=tracked_ids,
-            tracked_valid=status,
-            new_uv=torch.where(new_valid[..., None], new_uv, 0.0).to(dtype),
-            new_ids=new_ids,
-            new_valid=new_valid,
-        )
 
-    # ---- carry for the next frame: tracked + new, one per cell (cd.cpp:292-308) ----
+def dedup(tracked, new, H, W, fcfg: FrontendConfig):
+    """The carry for the next frame (``frontend.dedup``): the tracked and the
+    new (pts, ids, valid) lists, the first valid entry of each grid cell
+    (cd.cpp:292-308), compacted to ``max_features``."""
     with stage("frontend.dedup"):
-        cpts, cids, cvalid = _grid_dedup(
-            torch.cat([pts, new_xy], dim=1), torch.cat([tracked_ids, new_ids], dim=1),
-            torch.cat([status, new_valid], dim=1), H, W,
-            fcfg.n_grid_rows, fcfg.n_grid_cols, F,
-        )
-        new_state = FrontendState(
-            pyramid=cur_pyr, pts=cpts, ids=cids, valid=cvalid, next_id=next_id,
-            has_prev=torch.ones_like(state.has_prev),
-        )
+        return _grid_dedup(*(torch.cat(pair, dim=1) for pair in zip(tracked, new)), H, W,
+                           fcfg.n_grid_rows, fcfg.n_grid_cols, fcfg.max_features)
 
-    return new_state, out
+
+def first_valid(valid, n, *lists):
+    """The first ``n`` valid entries of each row of (B, N) lists, in order:
+    (valid, *lists), each gathered to (B, n, ...)."""
+    order = torch.argsort((~valid).to(torch.uint8), dim=1, stable=True)[:, :n]
+    return (torch.gather(valid, 1, order),) + tuple(_take(x, order) for x in lists)
 
 
 def _grid_dedup(pts, ids, valid, H, W, n_rows, n_cols, out_n):

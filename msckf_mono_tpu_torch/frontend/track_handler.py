@@ -8,12 +8,13 @@ and :meth:`TrackHandler.new_features` freshly detected corners with fresh
 monotone ids.
 
 Per frame (corner_detector.cpp:320-429): gyro accumulation -> mean rotation
-over the inter-frame interval (Rodrigues, :220-244) -> rotation-only
-homography prediction H = K·dR·K⁻¹ (:246-276) -> pyramidal KLT from the
-prediction (``ops/klt_cuda``) -> outlier rejection (|flow| > 25 px,
-out-of-image) -> per-cell dedup (:292-308) -> optional two-point RANSAC
-(shipped disabled, :366) -> undistort -> FAST detection (``ops/fast_cuda``)
-in unoccupied grid cells.
+over the inter-frame interval (Rodrigues, :220-244) -> the front-end stages
+of ``frontend/functional`` that the image fleets run too: per-cell dedup
+(:292-308) of the previous frame's lists, at ingest -> pyramid ->
+homography prediction, pyramidal KLT and rejection -> optional two-point
+RANSAC (shipped disabled, :366) -> the tracked outputs -> detection in
+unoccupied grid cells. The handler owns the gyro, the lazy pyramids, RANSAC
+and the carry; its parameters are one :class:`FrontendConfig`.
 
 Arrays are one filter's, batch-first (B = Bi = 1): points (1, F, 2), ids and
 flags (1, F), images (1, H, W). The handler keeps everything on its device
@@ -38,8 +39,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from msckf_mono_tpu_torch.frontend import detect, klt, ransac, undistort
-from msckf_mono_tpu_torch.frontend.functional import _cells, _grid_dedup, _take
+from msckf_mono_tpu_torch.eval.profile import stage
+from msckf_mono_tpu_torch.frontend import functional, ransac, undistort
+from msckf_mono_tpu_torch.frontend.functional import FrontendConfig
 from msckf_mono_tpu_torch.utils import prng, quat
 
 
@@ -67,15 +69,14 @@ class TrackHandler:
                                      device=self.device)
         self.dist_coeffs = tuple(float(c) for c in np.asarray(dist_coeffs).ravel())
         self.dist_model = dist_model
-        self.n_rows = n_grid_rows
-        self.n_cols = n_grid_cols
-        self.F = max_features
-        self.window_size = window_size
-        self.max_level = max_level
+        self.fcfg = FrontendConfig(
+            n_grid_rows=n_grid_rows, n_grid_cols=n_grid_cols, max_features=max_features,
+            window_size=window_size, max_level=max_level, max_iters=30,
+            fast_threshold=fast_threshold, detection_threshold=detection_threshold,
+            max_flow_px=25.0, image_precision="highest",
+        )
         self.ransac_threshold = ransac_threshold
         self.use_ransac = use_ransac
-        self.fast_threshold = fast_threshold
-        self.detection_threshold = detection_threshold
         self.dtype = dtype
 
         self.prev_img = None
@@ -93,10 +94,12 @@ class TrackHandler:
 
         self._gyro_sum = torch.zeros((3,), dtype=torch.float64, device=self.device)
         self._gyro_n = torch.zeros((), dtype=torch.float64, device=self.device)
+        # (3, 3), not (1, 3, 3): the stages broadcast one rotation with the
+        # plain products; a batched one takes other GEMMs, rounded otherwise
         self.dR = torch.eye(3, dtype=dtype, device=self.device)
 
     def _empty(self):
-        F, dev = self.F, self.device
+        F, dev = self.fcfg.max_features, self.device
         return (torch.zeros((1, F, 2), dtype=self.dtype, device=dev),
                 torch.full((1, F), -1, dtype=torch.int32, device=dev),
                 torch.zeros((1, F), dtype=torch.bool, device=dev))
@@ -191,26 +194,19 @@ class TrackHandler:
         self.prev_img = self.cur_img
         self._prev_pyr, self._cur_pyr = self._cur_pyr, None
 
-        # carry over current + new features, then keep the first of each grid
-        # cell (corner_detector.cpp:292-308; the JAX package's
-        # _grid_dedup_compact is functional._grid_dedup's twin)
         img = torch.as_tensor(img, device=self.device).to(self.dtype)
         img = img.reshape((1,) + tuple(img.shape[-2:]))
         H, W = (img if self.cur_img is None else self.cur_img).shape[-2:]
-        pts, ids, valid = _grid_dedup(
-            torch.cat([self.cur_pts, self.new_pts], dim=1),
-            torch.cat([self.cur_ids, self.new_ids], dim=1),
-            torch.cat([self.cur_valid, self.new_valid], dim=1),
-            H, W, self.n_rows, self.n_cols, self.F,
-        )
-        self.prev_pts, self.prev_ids, self.prev_valid = pts, ids, valid
+        self.prev_pts, self.prev_ids, self.prev_valid = functional.dedup(
+            (self.cur_pts, self.cur_ids, self.cur_valid),
+            (self.new_pts, self.new_ids, self.new_valid), H, W, self.fcfg)
 
         self.cur_img = img
         self.cur_pts, self.cur_ids, self.cur_valid = self._empty()
         self.new_pts, self.new_ids, self.new_valid = self._empty()
 
     def _pyramid(self, img, cached):
-        return cached if cached is not None else klt.build_pyramid(img, self.max_level)
+        return cached if cached is not None else functional.pyramid(img, self.fcfg)
 
     # ---- tracking (corner_detector.cpp:320-394) ----
 
@@ -223,60 +219,35 @@ class TrackHandler:
             self._cur_pyr = self._pyramid(self.cur_img, self._cur_pyr)
             return self._empty()
 
-        pred = _predict_homography(self.prev_pts, self.dR, self.K, self.K_inv)
         self._prev_pyr = self._pyramid(self.prev_img, self._prev_pyr)
         self._cur_pyr = self._pyramid(self.cur_img, self._cur_pyr)
-        pts, status = klt.track_features_pyr(
-            self._prev_pyr, self._cur_pyr, self.prev_pts, pred, self.prev_valid,
-            window_size=self.window_size,
-        )
-        status = klt.reject_outliers(self.prev_pts, pts, status, tuple(self.cur_img.shape[-2:]))
+        with stage("frontend.track"):
+            pts, status = functional.track(self._prev_pyr, self._cur_pyr, self.prev_pts,
+                                           self.prev_valid, self.dR, self.K, self.K_inv, self.fcfg)
+            if self.use_ransac:
+                prev_n = self._undistort(self.prev_pts)
+                cur_n = self._undistort(pts)
+                # the JAX package splits its key only on a frame with features to
+                # track (it returns early on the others)
+                key, sub = prng.split(self._key)
+                self._key = torch.where(torch.any(self.prev_valid), key, self._key)
+                status = status & ransac.two_point_ransac(
+                    self.dR, prev_n[0], cur_n[0], status[0], sub, self.ransac_threshold,
+                )[None]
 
-        if self.use_ransac:
-            prev_n = self._undistort(self.prev_pts)
-            cur_n = self._undistort(pts)
-            # the JAX package splits its key only on a frame with features to
-            # track (it returns early on the others)
-            key, sub = prng.split(self._key)
-            self._key = torch.where(torch.any(self.prev_valid), key, self._key)
-            status = status & ransac.two_point_ransac(
-                self.dR, prev_n[0], cur_n[0], status[0], sub, self.ransac_threshold,
-            )[None]
-
-        self.cur_pts = pts
-        self.cur_ids = torch.where(status, self.prev_ids, torch.full_like(self.prev_ids, -1))
-        self.cur_valid = status
-
-        uv_norm = self._undistort(pts)
-        return (torch.where(status[..., None], uv_norm, 0.0).to(self.dtype), self.cur_ids, status)
+            self.cur_pts, self.cur_valid = pts, status
+            uv, self.cur_ids = functional.tracked_outputs(pts, status, self.prev_ids, self.K,
+                                                          self.dist_coeffs, self.dist_model)
+            return uv, self.cur_ids, status
 
     # ---- detection (corner_detector.cpp:396-429) ----
 
     def new_features(self):
         """Detect new corners avoiding occupied cells; fresh monotone ids."""
-        H, W = self.cur_img.shape[-2:]
-        occupied = _occupancy(self.cur_pts, self.cur_valid, H, W, self.n_rows, self.n_cols)
-        xy, _score, valid = detect.detect_features(
-            self.cur_img, occupied, self.n_rows, self.n_cols,
-            self.fast_threshold, self.detection_threshold,
-        )
-        # budget to F slots, the valid ones first
-        order = torch.argsort((~valid).to(torch.uint8), dim=1, stable=True)[:, : self.F]
-        xy = _take(xy, order)
-        valid = torch.gather(valid, 1, order)
-
-        # the reference increments next_feature_id_ once, then per feature
-        # (:407-411); the valid rows are the first n_new
-        n_valid = valid.to(torch.int32)
-        seq = torch.cumsum(n_valid, dim=1, dtype=torch.int32) - 1
-        self.new_ids = torch.where(valid, self._next_id[:, None] + 1 + seq,
-                                   torch.full_like(seq, -1))
-        self._next_id = self._next_id + 1 + torch.sum(n_valid, dim=1, dtype=torch.int32)
-
-        self.new_pts = torch.where(valid[..., None], xy, 0.0).to(self.dtype)
-        self.new_valid = valid
-        uv_norm = self._undistort(self.new_pts)
-        return (torch.where(valid[..., None], uv_norm, 0.0).to(self.dtype), self.new_ids, valid)
+        self.new_pts, uv, self.new_ids, self.new_valid, self._next_id = functional.detect_new(
+            self.cur_img, self.cur_pts, self.cur_valid, self._next_id, self.K, self.dist_coeffs,
+            self.dist_model, self.fcfg)
+        return uv, self.new_ids, self.new_valid
 
     def _undistort(self, pts):
         return undistort.undistort_points(pts, self.K, self.dist_coeffs, self.dist_model)
@@ -331,20 +302,3 @@ CARRY = ("prev_img", "cur_img", "_cur_pyr", "prev_pts", "prev_ids", "prev_valid"
          "cur_ids", "cur_valid", "new_pts", "new_ids", "new_valid", "_next_id", "_gyro_sum",
          "_gyro_n", "dR", "_key")
 
-
-def _occupancy(pts, valid, H, W, n_rows, n_cols):
-    """(B, C) bool: grid cells holding a valid point."""
-    n_cells = n_rows * n_cols
-    cell = _cells(pts, H, W, n_rows, n_cols)
-    occ = torch.zeros((pts.shape[0], n_cells + 1), dtype=torch.bool, device=pts.device)
-    occ.scatter_(1, torch.where(valid, cell, n_cells), True)
-    return occ[:, :n_cells]
-
-
-def _predict_homography(pts, dR, K, K_inv):
-    """Rotation-only homography prediction H = K·dR·K⁻¹ (cd.cpp:246-276) of
-    (..., F, 2) points."""
-    Hm = K @ dR @ K_inv
-    ph = torch.cat([pts, torch.ones_like(pts[..., :1])], dim=-1) @ Hm.transpose(-1, -2)
-    z = ph[..., 2:3]
-    return ph[..., :2] / torch.clamp(torch.abs(z), min=1e-12) * torch.sign(z)

@@ -49,8 +49,9 @@ blocks propagated), ``live.stage`` (the host inputs into the staging
 buffers, after the previous frame that read them), the graph's
 ``graph.load`` and ``graph.replay``, ``live.copy_back`` (the host's wait on
 the device and the copy) and ``live.unpack``. ``LiveFrame.frame`` marks
-its front-end as the stage ``step.frontend``, and the tracker's three calls
-in it as ``frontend.dedup``, ``frontend.track`` and ``frontend.detect``.
+its front-end as the stage ``step.frontend``; the tracker's stages inside it
+are the image step's ``frontend.dedup`` (at ingest), ``frontend.pyramid``,
+``frontend.track`` and ``frontend.detect``.
 """
 
 from __future__ import annotations
@@ -62,12 +63,12 @@ import numpy as np
 import torch
 
 from msckf_mono_tpu_torch.core import filter as msckf_filter
+from msckf_mono_tpu_torch.core import pipeline
 from msckf_mono_tpu_torch.core.filter import FrameInput
 from msckf_mono_tpu_torch.core.init import ground_truth_init, standstill_init
 from msckf_mono_tpu_torch.core.types import filter_state_from_numpy, filter_state_to_numpy, init_filter_state
-from msckf_mono_tpu_torch.core.window import stable_order
 from msckf_mono_tpu_torch.eval.profile import span, stage
-from msckf_mono_tpu_torch.frontend.functional import _take
+from msckf_mono_tpu_torch.frontend.functional import FrontendOutput
 from msckf_mono_tpu_torch.frontend.track_handler import TrackHandler
 from msckf_mono_tpu_torch.frontend.visualize import TrackVisualizer
 from msckf_mono_tpu_torch.ops import cuda_graph
@@ -474,7 +475,7 @@ class LiveFrame:
         the camera frame) into the tracker, the tracker, the filter step.
         Returns the new carry and the packed :func:`frame_outputs`."""
         cfg, dtype, th = self.config, self.dtype, self.track_handler
-        K, F = cfg.shapes.imu_per_frame, cfg.shapes.max_features_per_frame
+        K = cfg.shapes.imu_per_frame
         state, th_carry = carry
         th.load(th_carry)
         blk = vec[: 7 * K].reshape(K, 7)
@@ -482,20 +483,14 @@ class LiveFrame:
             th.add_gyro_reading(quat_ops.rotate(self._q_CI,
                                                 (blk[:, 0:3] - state.imu.b_g).to(dtype)),
                                 vec[7 * K: 8 * K] > 0)
-            with stage("frontend.dedup"):
-                th._ingest(image)
-            with stage("frontend.track"):
-                tb = _budget(*th.tracked_features(vec[8 * K + 2]), F, dtype)
-            with stage("frontend.detect"):
-                nb = _budget(*th.new_features(), F, dtype)
-        b = blk.to(dtype)[None]
-        frame = FrameInput(
-            imu_omega=b[..., 0:3], imu_acc=b[..., 3:6], imu_dt=b[..., 6],
-            tracked_uv=tb[0], tracked_ids=tb[1], tracked_valid=tb[2],
-            new_uv=nb[0], new_ids=nb[1], new_valid=nb[2],
-            state_id=vec[8 * K: 8 * K + 1].to(torch.int32), time=vec[8 * K + 1: 8 * K + 2].to(dtype),
-            frame_valid=torch.ones((1,), dtype=torch.bool, device=vec.device),
-        )
+            th._ingest(image)
+            feats = FrontendOutput(*th.tracked_features(vec[8 * K + 2]), *th.new_features())
+            b = blk.to(dtype)[None]
+            frame = pipeline.frame_input(feats, pipeline.ImageFrameInput(
+                image=image, imu_omega=b[..., 0:3], imu_acc=b[..., 3:6], imu_dt=b[..., 6],
+                state_id=vec[8 * K: 8 * K + 1].to(torch.int32), time=vec[8 * K + 1: 8 * K + 2],
+                frame_valid=torch.ones((1,), dtype=torch.bool, device=vec.device),
+            ), cfg)
         state, _ = msckf_filter.step(state, frame, cfg)
         return (state, th.carry()), _pack(frame_outputs(state, th))
 
@@ -505,13 +500,6 @@ def frame_outputs(state, th):
     order (:data:`FRAME_OUTPUTS`): one filter's tensors without the batch axis."""
     return ([getattr(state.imu, k)[0] for k in _ODOMETRY] + [getattr(state, k)[0] for k in _ARCHIVE]
             + [getattr(th, k)[0] for k in _FEATURES])
-
-
-def _budget(uv, ids, valid, F, dtype):
-    """The first F valid entries of (1, N) lists, in order."""
-    order = stable_order(~valid)[:, :F]
-    return (_take(uv, order).to(dtype), torch.gather(ids, 1, order).to(torch.int32),
-            torch.gather(valid, 1, order))
 
 
 def _pack_imu_blocks(readings, K, dtype, device="cuda"):

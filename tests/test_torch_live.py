@@ -16,6 +16,9 @@ package's) at a small camera, 188 x 120 with the EuRoC intrinsics scaled by
   equal every frame, uv within 1e-9; f32 the same discrete outputs, uv
   within 1e-4; with RANSAC on over 20 frames in f64, the same (the carried
   key included);
+* ``TrackHandler`` against the port's own ``frontend_step`` at B = Bi = 1
+  over the same 12 frames and rotations, f64 and f32: the lists and the
+  carry bit-equal (one front-end, two drivers);
 * ``VioInterface`` at the tiny filter shapes of tests/_torch_port.py, f64,
   crossing ``max_cam_states`` so the pruned-pose archive fires, then
   ``finish()``: odometry within 1e-6 m every frame; cam_states, the
@@ -37,6 +40,7 @@ from msckf_mono_tpu.utils import config as jcfg
 from msckf_mono_tpu_torch import interface as tint
 from msckf_mono_tpu_torch.data import render as trender
 from msckf_mono_tpu_torch.data import synthetic as tsyn
+from msckf_mono_tpu_torch.frontend import functional as tfunc
 from msckf_mono_tpu_torch.frontend import ransac as transac
 from msckf_mono_tpu_torch.frontend import track_handler as tth
 from msckf_mono_tpu_torch.frontend import visualize as tvis
@@ -224,6 +228,38 @@ def _check_track_handler(tc, seq, imgs, gyro, jax_run, dtype, tol, **kw):
         np.testing.assert_array_equal(th._key.numpy(), want["key"], err_msg=f"frame {i} key")
         tracked_any += int(v.sum())
     assert tracked_any > 5 * len(imgs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32], ids=["f64", "f32"])
+def test_track_handler_and_frontend_step_are_one_front_end(th_world, dtype):
+    """The live driver and the image fleets' step run the same stages: fed
+    the handler's rotation each frame, ``frontend_step`` at B = Bi = 1 gives
+    bit-equal tracked and new lists, and its state is the handler's deduped
+    carry after the next ingest. K⁻¹ is the one input the two derive apart
+    (the handler inverts its K with LAPACK, 1 ulp from the config's closed
+    form in f64), so the handler is given the closed form here."""
+    tc, seq, imgs, gyro = th_world
+    cam = tc.camera
+    th = tth.TrackHandler(_K(cam), cam.distortion_coeffs, cam.distortion_model, dtype=dtype,
+                          device=CPU, **TH_KW)
+    th.K_inv = tfunc._camera_arrays(tc, dtype, torch.device(CPU))[1]
+    fs = tfunc.init_frontend_state(cam.height, cam.width, th.fcfg, 1, 1, dtype, device=CPU)
+    names = ("tracked_uv", "tracked_ids", "tracked_valid", "new_uv", "new_ids", "new_valid")
+    tracked = 0
+    for i, img in enumerate(imgs):
+        th.add_gyro_reading(gyro[i])
+        th.set_current_image(img, float(seq.time[i]))
+        for name in ("pts", "ids", "valid"):
+            assert torch.equal(getattr(th, "prev_" + name), getattr(fs, name)), (i, name)
+        got = th.tracked_features() + th.new_features()
+        fs, out = tfunc.frontend_step(fs, torch.as_tensor(img[None], dtype=dtype), th.dR, tc,
+                                      th.fcfg)
+        for name, g in zip(names, got):
+            want = getattr(out, name)
+            assert g.dtype == want.dtype and torch.equal(g, want), (i, name)
+        assert int(fs.next_id[0]) == th.next_feature_id
+        tracked += int(out.tracked_valid.sum())
+    assert tracked > 5 * len(imgs)
 
 
 @pytest.fixture(scope="module")
@@ -447,7 +483,7 @@ def test_pack_imu_blocks_and_budget_match_jax(n):
     valid = rng.uniform(size=12) < 0.5
     uv, ids = rng.normal(size=(12, 2)), np.arange(12, dtype=np.int32) * 3
     w = jint._budget(jnp.asarray(uv), jnp.asarray(ids), jnp.asarray(valid), 8, jnp.float64)
-    g = tint._budget(torch.as_tensor(uv)[None], torch.as_tensor(ids)[None],
-                     torch.as_tensor(valid)[None], 8, torch.float64)
-    for a, b in zip(g, w):
+    g_valid, g_uv, g_ids = tfunc.first_valid(torch.as_tensor(valid)[None], 8,
+                                             torch.as_tensor(uv)[None], torch.as_tensor(ids)[None])
+    for a, b in zip((g_uv, g_ids, g_valid), w):
         np.testing.assert_array_equal(a[0].numpy(), np.asarray(b))

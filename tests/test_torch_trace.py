@@ -14,7 +14,8 @@
   ``graph.replay`` and ``scan.stack`` each step;
 * under a CPU ``torch.profiler`` an eager ``core/filter.step`` (fused and
   sequential updates), ``frontend_step`` and ``core/pipeline.step`` emit
-  their stage ranges, nested as named;
+  their stage ranges, nested as named, and a ``VioInterface`` frame emits
+  the image step's ``frontend.*`` ranges inside ``step.frontend``;
 * the static-buffer path gives bit-equal outputs with recording on and off;
 * ``ops/cuda_build`` counts nvcc runs and libraries found built.
 """
@@ -291,6 +292,28 @@ def test_pipeline_step_nests_the_frontend_under_step_frontend(world):
         assert _inside(ranges[n][0], "step.frontend")
     for n in FILTER_STAGES:
         assert not _inside(ranges[n][0], "step.frontend")
+
+
+def test_live_frame_nests_the_image_steps_frontend_stages(world):
+    tc, seq, imgs = world
+    vio = tint.VioInterface(tc, dtype=torch.float64, track_handler_kwargs=TH_KW, device="cpu")
+    vio.initialize_from_ground_truth(**tp.INIT, b_g=seq.b_g, b_a=seq.b_a)
+    K = seq.imu_omega.shape[1]
+
+    def frames(lo, hi):
+        for i in range(lo, hi):
+            for k in range(K):
+                vio.imu_callback(seq.imu_omega[i, k], seq.imu_acc[i, k],
+                                 float(seq.time[i]) - (K - 1 - k) * 0.005,
+                                 dt=float(seq.imu_dt[i, k]))
+            assert vio.image_callback(imgs[i], float(seq.time[i]))
+
+    frames(0, 1)                      # the first image has nothing to track
+    ranges = _profiled_ranges(lambda: frames(1, 3))
+    assert {n for n in ranges if n.startswith("frontend.")} == set(FRONTEND_STAGES)
+    assert len(ranges["step.frontend"]) == 2
+    for n in FRONTEND_STAGES:
+        assert len(ranges[n]) == 2 and all(_inside(e, "step.frontend") for e in ranges[n]), n
 
 
 def _equal_trees(a, b, tag):
