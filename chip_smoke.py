@@ -6,12 +6,13 @@
 Phases, each printed on its own lines; any failure raises and exits non-zero:
 
 1. [device]: the card's name, and its name and power limit from nvidia-smi;
-2. [build]: compiles csrc/{psd_gamma,fast_nms,klt_level,triangulate}.cu with nvcc for
-   sm_90a (-Xptxas -v), one nvcc process per source, all at once (or reuses
-   the libraries and their nvcc reports from an earlier build), and prints
-   every kernel instance's registers, stack frame and spills; then the
-   launchers' plans for R in 1..400 and windows 3..151, each within the
-   card's shared memory a block;
+2. [build]: compiles csrc/{psd_gamma,fast_nms,klt_level,triangulate,shi_tomasi}.cu
+   with nvcc for sm_90a (-Xptxas -v), one nvcc process per source, all at
+   once (or reuses the libraries and their nvcc reports from an earlier
+   build), and prints every kernel instance's registers, stack frame and
+   spills; then the launchers' plans for R in 1..400, windows 3..151 and
+   the Shi-Tomasi kernel's sub-tile at 480 x 752 (grids 10 x 10 and 1 x 1),
+   each within the card's shared memory a block;
 3. [kernel]: the gamma kernel against its plain PyTorch version on the card at
    R in {1, 2, 3, 13, 41, 53, 121, 200} and at R = 345, above what a block's
    shared memory holds (the device-memory scratch variant): within 1e-3
@@ -89,11 +90,20 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    >= 99.9% of good features (the rest counted); then FAST's times at the
    main paths' shapes and on uniform noise, each beside its bound counted on
    the image (the share of pixels that pass the pre-test);
+   [kernel] Shi-Tomasi: the score, FAST/NMS gate and per-cell best kernel
+   (ops/shi_tomasi_cuda.shi_tomasi_cells) at (1, 480, 752) and
+   (64, 480, 752) on the rendered frame and on uniform noise: its best
+   within 1e-5 relative (+ 1e-4) of the plain version's in float64, the
+   float32 plain version's gap beside it, its cell indices equal where the
+   float64 top two are further apart; its times (one call, and device
+   time), its bound (bytes: each pixel and its FAST/NMS value read once)
+   and the plain version's time; no library call computes it;
 6. [image]: the image-in-the-loop path of bench.py's --images configuration,
    256 filters sharing one rendered 480 x 752 camera over 200 frames
    (make_fleet -> init_frontend_state -> batched_run_images_shared, one
    replayed graph a frame): image-frame-steps/s, ATE(filter 0), counters,
-   peak memory and exact launch counts (FAST T, KLT 4T, gamma 2T);
+   peak memory and exact launch counts (FAST T, KLT 4T, gamma 2T,
+   triangulate 2T, Shi-Tomasi T);
 7. [image-profile], [image-graph], [replay]: from the shared fleet's state
    after frame 30, a profile of frames 30-32; the replay-against-eager
    comparison of [graph] on this path; and an eager run of frames 30-33
@@ -106,7 +116,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
    [image-precision]: the same path with image_precision="default" (TF32
    for the pyramid's and Shi-Tomasi's products): rate and ATE beside
    [image]'s and both tiers timed in turn (highest, default, default,
-   highest), exact launches, frame 30's largest gap against "highest" on
+   highest), exact launches (no Shi-Tomasi kernel: the TF32 tier keeps the
+   banded products), frame 30's largest gap against "highest" on
    each pyramid level and the Shi-Tomasi map, the share of features whose
    KLT good flags agree, the products' device time (TF32 kernels in a
    profile of frames 30-32, and the products alone); then [main]'s first 10
@@ -286,11 +297,12 @@ def _demangle(names):
 
 def phase_build():
     """Build every kernel; returns {source: [ptxas usage of each instance]}."""
-    from msckf_mono_tpu_torch.ops import cuda_build, fast_cuda, klt_cuda, psd_cuda, triangulate_cuda
+    from msckf_mono_tpu_torch.ops import (cuda_build, fast_cuda, klt_cuda, psd_cuda, shi_tomasi_cuda,
+                                          triangulate_cuda)
 
     t0 = time.time()
     logs = cuda_build.build_all()
-    for mod in (psd_cuda, fast_cuda, klt_cuda, triangulate_cuda):
+    for mod in (psd_cuda, fast_cuda, klt_cuda, triangulate_cuda, shi_tomasi_cuda):
         mod._load()
     log(f"[build] {', '.join(cuda_build.library_path(n).name for n in logs)} in "
         f"{time.time() - t0:.2f} s")
@@ -322,6 +334,11 @@ def phase_build():
                 spans.append([p.variant, size, size])
         log(f"[build] {what} plans, each within {limit} B of shared memory a block: "
             + ", ".join(f"{v} {a}-{b}" for v, a, b in spans))
+    for grid in ((10, 10), (1, 1)):
+        th, tw, smem = shi_tomasi_cuda.launch_plan(480, 752, 15, *grid)
+        check(smem <= limit, f"[build] Shi-Tomasi plan {th} x {tw}, {smem} B exceeds {limit} B")
+        log(f"[build] Shi-Tomasi at 480 x 752, grid {grid[0]} x {grid[1]}, half-width 15: "
+            f"sub-tiles of up to {th} x {tw} pixels, {smem} B of shared memory a block")
     return usage
 
 
@@ -754,8 +771,9 @@ def phase_main(torch, batch, frames):
     metrics = sharding.fleet_metrics(final)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    fast_n, klt_n, launches, tri_n = _counts()
-    check((fast_n, klt_n) == (0, 0), f"the filter path launched FAST {fast_n}, KLT {klt_n} times")
+    fast_n, klt_n, launches, tri_n, st_n = _counts()
+    check((fast_n, klt_n, st_n) == (0, 0, 0), f"the filter path launched FAST {fast_n}, KLT "
+          f"{klt_n}, Shi-Tomasi {st_n} times")
 
     est = outs.p_I_G.cpu().numpy()                       # (T, B, 3)
     check(np.all(np.isfinite(est)), "non-finite trajectory")
@@ -919,10 +937,54 @@ def _fast_bound(imgs, threshold):
             passing / (Bi * H * W))
 
 
+def _shi_tomasi_kernel(torch, name, t):
+    """The Shi-Tomasi kernel on images ``t`` against the plain version in
+    float64 (and the float32 plain version's gap beside it), then its times
+    and its bound: bytes, each pixel and its FAST/NMS value read once and
+    each cell's best and index written once."""
+    from msckf_mono_tpu_torch.ops import fast_cuda, shi_tomasi_cuda
+
+    nms = fast_cuda.fast_nms_score(t, 20.0)
+    kernel = shi_tomasi_cuda.shi_tomasi_cells
+    before = kernel.launches
+    best, local = kernel(t, nms)
+    torch.cuda.synchronize()
+    check(kernel.launches == before + 1, f"[kernel] Shi-Tomasi {name}: launches not counted")
+    st64 = shi_tomasi_cuda.shi_tomasi_score_plain(t.double())
+    b64, l64 = shi_tomasi_cuda.cell_best_plain(st64, nms)
+    b32, _ = shi_tomasi_cuda.shi_tomasi_cells_plain(t, nms)
+    err = (best.double() - b64).abs()
+    err32 = float((b32.double() - b64).abs().max())
+    check(bool((err <= 1e-5 * b64.abs() + 1e-4).all()), f"[kernel] Shi-Tomasi {name}: best off "
+          f"the float64 plain version by {float(err.max()):.3e}")
+    marked = torch.where(nms > 0, st64, torch.full_like(st64, -1.0))
+    top2 = shi_tomasi_cuda.cell_tiles(marked).topk(2).values
+    clear = (top2[..., 0] - top2[..., 1]) > 1e-5 * b64.abs() + 1e-4
+    check(torch.equal(local[clear], l64[clear]), f"[kernel] Shi-Tomasi {name}: cell indices differ")
+    Bi, H, W = t.shape
+    nbytes = 2 * Bi * H * W * 4 + Bi * 100 * (4 + 8)
+    out = dict(shape=list(t.shape), max_abs_err=float(err.max()),
+               max_rel_err=float((err / b64.abs().clamp_min(1.0)).max()), f32_plain_max_abs_err=err32,
+               ms=_time_ms(torch, lambda: kernel(t, nms)),
+               device_ms=_graph_ms(torch, lambda: kernel(t, nms)),
+               plain_ms=_time_ms(torch, lambda: shi_tomasi_cuda.shi_tomasi_cells_plain(t, nms),
+                                 reps=10),
+               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
+               corners=int((b64 > 40).sum()), indices_checked=int(clear.sum()))
+    log(f"[kernel] Shi-Tomasi {name} {tuple(t.shape)}: best within {out['max_abs_err']:.3e} "
+        f"(relative {out['max_rel_err']:.3e}) of the float64 plain version, the float32 plain "
+        f"version within {err32:.3e}; indices equal on {out['indices_checked']} cells whose top "
+        f"two are apart; {out['corners']} cells above 40; kernel {out['ms']:.4f} ms a call, "
+        f"{out['device_ms']:.4f} ms on the device, plain {out['plain_ms']:.4f} ms, bound "
+        f"{out['bound_ms']:.5f} ms (bytes; {nbytes / 1e6:.1f} MB); library: none")
+    return out
+
+
 def phase_image_kernels(torch, imgs):
-    """FAST and KLT against their plain versions on the card, at the image
-    path's shapes; FAST's times at the main path's shapes. Returns FAST's
-    times and the largest absolute error of FAST and of KLT."""
+    """FAST, KLT and Shi-Tomasi against their plain versions on the card, at
+    the image path's shapes; FAST's and Shi-Tomasi's times at the main
+    path's shapes. Returns FAST's times, the largest absolute error of FAST
+    and of KLT, and Shi-Tomasi's checks and times."""
     from msckf_mono_tpu_torch.frontend import detect, klt
     from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda
 
@@ -961,6 +1023,9 @@ def phase_image_kernels(torch, imgs):
             f"a call, {fast[shape_name]['device_ms']:.4f} ms on the device, plain "
             f"{fast[shape_name]['plain_ms']:.4f} ms, bound {bound_ms:.5f} ms ({bound_by}; "
             f"{100 * share:.3f}% of the pixels pass the pre-test)")
+    shi_tomasi = {name: _shi_tomasi_kernel(torch, name, t) for name, t in
+                  (("shared", frame), ("independent", batch), ("random", noise),
+                   ("random x64", (noise + batch - frame).contiguous()))}
 
     # KLT on rendered frame pairs: features at detected corners of frame 30,
     # each filter with its own jitter, predicted at zero motion plus noise.
@@ -1016,7 +1081,7 @@ def phase_image_kernels(torch, imgs):
             log(f"[kernel] {tag}, B={B}, F={F}: good flags identical ({n} good of {B * F}); "
                 f"{close}/{n} within {KLT_ATOL_PX} px (max abs err {mx:.2e} px), {rest} beyond "
                 f"(max {rest_max:.4f} px)")
-    return fast, fast_err, worst
+    return fast, fast_err, worst, shi_tomasi
 
 
 def image_frames(seq, imgs, B, independent):
@@ -1046,23 +1111,25 @@ def image_frames(seq, imgs, B, independent):
 
 
 def _counts():
-    """Launches of (FAST, KLT, gamma, triangulate)."""
-    from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda, psd_cuda, triangulate_cuda
+    """Launches of (FAST, KLT, gamma, triangulate, Shi-Tomasi)."""
+    from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda, psd_cuda, shi_tomasi_cuda, triangulate_cuda
 
     return (fast_cuda.fast_nms_score.launches, klt_cuda.track_level.launches,
-            psd_cuda.gamma_psd.launches, triangulate_cuda.triangulate_tracks.launches)
+            psd_cuda.gamma_psd.launches, triangulate_cuda.triangulate_tracks.launches,
+            shi_tomasi_cuda.shi_tomasi_cells.launches)
 
 
 def _zero_counts():
-    from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda, psd_cuda, triangulate_cuda
+    from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda, psd_cuda, shi_tomasi_cuda, triangulate_cuda
 
     fast_cuda.fast_nms_score.launches = 0
     klt_cuda.track_level.launches = 0
     psd_cuda.gamma_psd.launches = 0
     triangulate_cuda.triangulate_tracks.launches = 0
+    shi_tomasi_cuda.shi_tomasi_cells.launches = 0
 
 
-LAUNCH_KEYS = ("fast", "klt", "gamma", "triangulate")
+LAUNCH_KEYS = ("fast", "klt", "gamma", "triangulate", "shi_tomasi")
 
 
 def image_run(torch, tag, seq, imgs, B, independent, fcfg):
@@ -1103,7 +1170,9 @@ def image_run(torch, tag, seq, imgs, B, independent, fcfg):
     metrics = sharding.fleet_metrics(final)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    fast_n, klt_n, gamma_n, tri_n = _counts()
+    fast_n, klt_n, gamma_n, tri_n, st_n = _counts()
+    # the kernel runs at "highest"; the TF32 tier keeps the banded products
+    st_want = T if fcfg.image_precision == "highest" else 0
 
     est = outs.p_I_G.cpu().numpy()                       # (T, B, 3)
     check(np.all(np.isfinite(est)), f"[{tag}] non-finite trajectory")
@@ -1126,14 +1195,14 @@ def image_run(torch, tag, seq, imgs, B, independent, fcfg):
         f"{m['mean_cam_count']:.1f}; live tracks at the end {int(ffinal.valid.sum())} "
         f"({int(ffinal.valid[0].sum())} for filter 0), next id of filter 0 {int(ffinal.next_id[0])}")
     log(f"[{tag}] launches over {T} frames: FAST {fast_n}, KLT {klt_n}, gamma {gamma_n}, "
-        f"triangulate {tri_n}")
+        f"triangulate {tri_n}, Shi-Tomasi {st_n}")
     check(ate0 < ATE_GATE_M, f"[{tag}] ATE {ate0:.4f} m >= {ATE_GATE_M} m")
-    check((fast_n, klt_n, gamma_n, tri_n) == (T, 4 * T, 2 * T, 2 * T),
-          f"[{tag}] launches FAST {fast_n}, KLT {klt_n}, gamma {gamma_n}, triangulate {tri_n}; "
-          f"expected {T}, {4 * T}, {2 * T}, {2 * T}")
+    check((fast_n, klt_n, gamma_n, tri_n, st_n) == (T, 4 * T, 2 * T, 2 * T, st_want),
+          f"[{tag}] launches FAST {fast_n}, KLT {klt_n}, gamma {gamma_n}, triangulate {tri_n}, "
+          f"Shi-Tomasi {st_n}; expected {T}, {4 * T}, {2 * T}, {2 * T}, {st_want}")
     result = dict(B=B, T=T, seconds=seconds, steps_per_s=B * T / seconds, ate0=ate0,
                   peak_gib=peak, reserved_gib=reserved, capture_s=capture_s,
-                  launches=dict(fast=fast_n, klt=klt_n, gamma=gamma_n, triangulate=tri_n), **m)
+                  launches=dict(zip(LAUNCH_KEYS, (fast_n, klt_n, gamma_n, tri_n, st_n))), **m)
     return result, run, make, frames, cfg
 
 
@@ -1343,7 +1412,7 @@ def phase_graph(torch, tag, step, static, make, frames, main):
     err = float((e["pos"] - r["pos"]).abs().max())
     log(f"[{tag}] {n} frames, eager against replayed from the cached graph ({r['replays']} "
         f"replays): bit-equal {same}; max position difference {err:.3e} m; counters eager "
-        f"{e['metrics']}, replay {r['metrics']}; launches (FAST, KLT, gamma, triangulate) eager "
+        f"{e['metrics']}, replay {r['metrics']}; launches (FAST, KLT, gamma, triangulate, Shi-Tomasi) eager "
         f"{e['launches']}, replay {r['launches']}")
     check(r["replays"] == n, f"[{tag}] {r['replays']} replays over {n} frames")
     check(e["launches"] == r["launches"], f"[{tag}] launches differ")
@@ -1438,7 +1507,7 @@ def phase_profile(torch, tag, go, frame_ms):
     mine = {}
     for a in rows:
         for name, prefix in (("gamma", "gamma_"), ("fast", "fast_nms"), ("klt", "klt_"),
-                             ("triangulate", "triangulate_")):
+                             ("triangulate", "triangulate_"), ("shi_tomasi", "shi_tomasi_")):
             if a.key.startswith(prefix) or f" {prefix}" in a.key or f"::{prefix}" in a.key:
                 t, n = mine.get(name, (0.0, 0.0))
                 mine[name] = (t + a.self_device_time_total / 1e3 / PROFILE_FRAMES,
@@ -1483,14 +1552,14 @@ def live_expected_launches(cfg, frames, finish=True):
     KLT once a level from the second frame on, gamma once a chunk of each
     gated row stack (marginalize, then prune), triangulate once a stack, and
     in finish() gamma once a chunk and triangulate once for each of its
-    passes."""
+    passes; Shi-Tomasi once a frame (the live front-end's "highest" tier)."""
     shp = cfg.shapes
     marg = shp.max_staged // min(shp.staged_chunk, shp.max_staged)
     prune = shp.max_staged_prune // min(shp.prune_chunk or shp.staged_chunk, shp.max_staged_prune)
     per_frame = marg + (prune if cfg.filter.use_prune_redundant else 0)
     passes = -(-shp.max_tracks // shp.max_staged)
     return (frames, 4 * (frames - 1), per_frame * frames + (passes * marg if finish else 0),
-            triangulations_per_step(cfg) * frames + (passes if finish else 0))
+            triangulations_per_step(cfg) * frames + (passes if finish else 0), frames)
 
 
 class SyncCounter:
@@ -1639,7 +1708,7 @@ def phase_live_cli(torch, root, info, frames):
         f"(limit {ATE_GATE_M}), final drift {report['final_drift']:.4f} m")
     log(f"[live-cli] map {len(dat['map'])} points, {len(dat['pruned_state_id'])} pruned poses; "
         f"launches FAST {launches[0]}, KLT {launches[1]}, gamma {launches[2]}, triangulate "
-        f"{launches[3]} (expected {want[0]}, {want[1]}, {want[2]}, {want[3]}); device->host copies {copies[0]} "
+        f"{launches[3]}, Shi-Tomasi {launches[4]} (expected {want}); device->host copies {copies[0]} "
         f"({copies[0] / frames:.2f} a frame), synchronizing CUDA calls {syncs.count} "
         f"({syncs.count / frames:.2f} a frame: {syncs.summary(frames)})")
     check(report["frames"] == frames, f"[live-cli] {report['frames']} frames, expected {frames}")
@@ -1738,7 +1807,7 @@ def phase_live(torch, tag, seq, imgs, frames, cfg, recorder=None):
         f"pruned poses; window {len(cs['state_id'])} poses; map_points() {vio.map_points().shape}; "
         f"overlay {overlay.shape} {overlay.dtype}")
     log(f"[{tag}] launches FAST {launches[0]}, KLT {launches[1]}, gamma {launches[2]}, triangulate "
-        f"{launches[3]} (expected {want[0]}, {want[1]}, {want[2]}, {want[3]}); device->host copies "
+        f"{launches[3]}, Shi-Tomasi {launches[4]} (expected {want}); device->host copies "
         f"{vio.host_copies} "
         f"({vio.host_copies / frames:.2f} a frame), synchronizing CUDA calls in image_callback "
         f"{syncs.count} ({syncs.count / frames:.2f} a frame: {syncs.summary(frames)})")
@@ -1915,7 +1984,7 @@ def phase_live_ransac(torch, seq, imgs, cfg, live):
     log(f"[live-ransac] synchronizing calls a frame {r['syncs'].count / frames:.2f} (from the third "
         f"frame on: max {max(steady)}; {r['syncs'].summary(frames)}); launches FAST "
         f"{r['launches'][0]}, KLT {r['launches'][1]}, gamma {r['launches'][2]}, triangulate "
-        f"{r['launches'][3]} (expected {want[0]}, {want[1]}, {want[2]}, {want[3]}); ATE(filter 0) {ate:.4f} m ([live] {live['ate']:.4f} m), "
+        f"{r['launches'][3]}, Shi-Tomasi {r['launches'][4]} (expected {want}); ATE(filter 0) {ate:.4f} m ([live] {live['ate']:.4f} m), "
         f"final drift {drift:.4f} m; tracked feature-frames {tracked} ({tracked_off} with RANSAC off)")
     check(replays == frames - 1, f"[live-ransac] {replays} replayed frames of {frames}")
     check(same, "[live-ransac] the replayed frames differ from the eager ones")
@@ -2117,7 +2186,7 @@ def _sharded_setup(torch, tag, mesh, main):
     final, outs, metrics = run(states, frames)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    gamma_n, tri_n = _counts()[2:]
+    gamma_n, tri_n = _counts()[2:4]
     t0 = time.perf_counter()
     sharding.fleet_metrics(final, mesh)
     torch.cuda.synchronize()
@@ -2285,7 +2354,7 @@ def phase_checkpoint(torch, main):
           "[checkpoint] the restored state differs from the saved one")
     resumed, _ = run(restored, tree_map(lambda x: x[half:], frames))
     torch.cuda.synchronize()
-    gamma_n, tri_n = _counts()[2:]
+    gamma_n, tri_n = _counts()[2:4]
     same = dict(P=torch.equal(resumed.P, final.P),
                 p_I_G=torch.equal(resumed.imu.p_I_G, final.imu.p_I_G),
                 diag=_tree_equal(torch, resumed.diag, final.diag),
@@ -2327,7 +2396,7 @@ def phase_golden(torch):
     frames = broadcast_frames(synthetic.to_frame_inputs(seq, torch.float32, device="cuda"), 1)
     _zero_counts()
     final, outs = msckf_filter.run_sequence(init_filter_state(cfg, imu, device="cuda"), frames, cfg)
-    gamma_n, tri_n = _counts()[2:]
+    gamma_n, tri_n = _counts()[2:4]
     T = frames.time.shape[0]
     p = outs.p_I_G[:, 0].double().cpu().numpy()
     gap = float(np.abs(p - gold["p"]).max())
@@ -2486,7 +2555,7 @@ def main(argv=None):
     cuda_graph.clear_cache()
 
     seq, imgs = render_world(serving_config(IMAGE_BATCH), max(IMAGE_FRAMES, INDEP_FRAMES))
-    fast_shapes, fast_err, klt_err = phase_image_kernels(torch, imgs)
+    fast_shapes, fast_err, klt_err, st_shapes = phase_image_kernels(torch, imgs)
     shared = phase_image(torch, "image", seq, imgs[:IMAGE_FRAMES], IMAGE_BATCH, False)
     cuda_graph.clear_cache()
     precision = phase_image_precision(torch, seq, imgs[:IMAGE_FRAMES], shared, main10)
@@ -2574,10 +2643,25 @@ def main(argv=None):
         "per_shape": tri_shapes,
         "registers": usage["triangulate"],
     }
+    shi_tomasi = {
+        "name": "shi_tomasi", "route": "cuda", "source": "msckf_mono_tpu_torch/csrc/shi_tomasi.cu",
+        # the JAX package computes the score in plain JAX (frontend/detect.py)
+        "replaces": None,
+        "launches": shared["launches"]["shi_tomasi"], "launches_by_path": by_path["shi_tomasi"],
+        "max_abs_err": max(s["max_abs_err"] for s in st_shapes.values()),
+        # one launch a frame on the shared camera's (1, 480, 752) image
+        **{k: st_shapes["shared"][k] for k in ("ms", "device_ms", "plain_ms", "bound_ms",
+                                               "bound_by")},
+        # no single PyTorch call computes it
+        "library_ms": None,
+        "per_shape": st_shapes,
+        "registers": usage["shi_tomasi"],
+    }
     # each kernel's device time a frame inside the replayed step (profiles of 3 frames)
     profiles = {"filter": graph["replay_profile"], "image": shared["graph"]["replay_profile"],
                 "live": live["live-graph"]["replay_profile"]}
-    for entry, key in ((gamma, "gamma"), (fast, "fast"), (klt, "klt"), (triangulate, "triangulate")):
+    for entry, key in ((gamma, "gamma"), (fast, "fast"), (klt, "klt"), (triangulate, "triangulate"),
+                       (shi_tomasi, "shi_tomasi")):
         entry["in_graph_per_frame"] = {path: prof["kernels"].get(key) for path, prof in profiles.items()}
     paths = {k: {kk: v for kk, v in r.items() if kk not in ("replay", "graph")}
              for k, r in (("image", shared), ("image-indep", indep))}
@@ -2588,7 +2672,7 @@ def main(argv=None):
                   "sharded": sharded, "checkpoint": ckpt, "golden": golden,
                   "image-precision": {k: v for k, v in precision.items() if k != "profile"}})
     paths["live-data"] = {"decoder": live["decoder"]}
-    print(json.dumps({"kernels": [gamma, fast, klt, triangulate], "paths": paths}))
+    print(json.dumps({"kernels": [gamma, fast, klt, triangulate, shi_tomasi], "paths": paths}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -34,7 +34,7 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
-KERNELS = ("psd_gamma", "fast_nms", "klt_level", "triangulate")
+KERNELS = ("psd_gamma", "fast_nms", "klt_level", "triangulate", "shi_tomasi")
 # Flags one source adds: the triangulation keeps the plain version's rounding
 # (no multiply-add contracted into an FMA).
 SOURCE_FLAGS = {"triangulate": ["-fmad=false"]}

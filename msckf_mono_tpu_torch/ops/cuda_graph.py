@@ -49,12 +49,12 @@ import threading
 import torch
 
 from msckf_mono_tpu_torch.eval.profile import span
-from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda, psd_cuda, triangulate_cuda
+from msckf_mono_tpu_torch.ops import fast_cuda, klt_cuda, psd_cuda, shi_tomasi_cuda, triangulate_cuda
 
 # The wrappers whose ``.launches`` a replay adds to (the function objects
 # hold the counts, see ops/psd_cuda.py).
 LAUNCH_COUNTERS = (psd_cuda._GAMMA_PSD, fast_cuda._FAST_NMS_SCORE, klt_cuda._TRACK_LEVEL,
-                   triangulate_cuda._TRIANGULATE_TRACKS)
+                   triangulate_cuda._TRIANGULATE_TRACKS, shi_tomasi_cuda._SHI_TOMASI_CELLS)
 
 # Graphs captured in this process.
 captures = 0

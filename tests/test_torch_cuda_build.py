@@ -102,3 +102,11 @@ def test_klt_level_bytes_counts_the_pixels_read(Bi):
     assert pixels == want
     assert 0 < pixels < 2 * Bi * H * W
     assert nbytes == 4 * want + B * F * (2 * 8 + 1 + 8 + 1)
+
+
+def test_every_source_is_built():
+    """``KERNELS`` lists every ``csrc/*.cu`` (the Shi-Tomasi kernel's too), so
+    ``build_all`` builds each and ``chip_smoke.py`` reports its registers."""
+    assert "shi_tomasi" in cuda_build.KERNELS
+    assert sorted(cuda_build.KERNELS) == sorted(p.stem for p in cuda_build.CSRC.glob("*.cu"))
+    assert all(cuda_build.source(name).is_file() for name in cuda_build.KERNELS)

@@ -16,8 +16,8 @@ same inputs, f32:
 * 30 live frames of ``VioInterface`` and its ``finish()``: the tracker's ids
   equal on every frame, positions within 1e-3 m;
 * ``batched_step`` and ``make_jitted_step`` replay their eager step;
-* launch counts are exact after replays (the captured count added once a
-  replay), and warm-up leaves them as they were;
+* launch counts (FAST, KLT, γ, Shi-Tomasi) are exact after replays (the
+  captured count added once a replay), and warm-up leaves them as they were;
 * a capture of an operation that synchronizes with the host raises, and
   leaves the device's default generator usable;
 * a dropped graph in a reference cycle, freed by the cyclic collector,
@@ -40,7 +40,7 @@ from msckf_mono_tpu_torch.core.types import filter_state_to_numpy
 from msckf_mono_tpu_torch.data import render, synthetic
 from msckf_mono_tpu_torch.frontend import functional
 from msckf_mono_tpu_torch.interface import VioInterface
-from msckf_mono_tpu_torch.ops import cuda_graph, fast_cuda, klt_cuda, psd_cuda
+from msckf_mono_tpu_torch.ops import cuda_graph, fast_cuda, klt_cuda, psd_cuda, shi_tomasi_cuda
 from msckf_mono_tpu_torch.parallel import montecarlo, sharding
 from msckf_mono_tpu_torch.utils.config import MsckfConfig
 
@@ -67,7 +67,7 @@ def serving(batch):
 
 def counts():
     return (fast_cuda.fast_nms_score.launches, klt_cuda.track_level.launches,
-            psd_cuda.gamma_psd.launches)
+            psd_cuda.gamma_psd.launches, shi_tomasi_cuda.shi_tomasi_cells.launches)
 
 
 def _counters(state):
@@ -98,7 +98,7 @@ def test_filter_path_replay_equals_eager(card):
     make = lambda: montecarlo.make_fleet(cfg, imu, B, dtype=torch.float32, device=card)
     before = counts()
     got = tfilter.run_sequence(make(), frames, cfg)
-    assert counts()[2] - before[2] == 2 * T
+    assert counts()[2] - before[2] == 2 * T and counts()[3] == before[3]
     with cuda_graph.disabled():
         want = tfilter.run_sequence(make(), frames, cfg)
     _compare("filter path", got, want)
@@ -147,7 +147,7 @@ def test_image_path_replay_equals_eager(card):
 
     before = counts()
     s, fs, outs = run(*make(), frames)
-    assert tuple(np.subtract(counts(), before)) == (T, 4 * T, 2 * T)
+    assert tuple(np.subtract(counts(), before)) == (T, 4 * T, 2 * T, T)
     with cuda_graph.disabled():
         ws, wfs, wouts = run(*make(), frames)
     assert torch.equal(fs.ids, wfs.ids) and torch.equal(fs.valid, wfs.valid)
@@ -186,7 +186,7 @@ def test_live_replay_equals_eager(card):
     seq, imgs = _world(T)
     before = counts()
     ids, pos, vio = _live(card, seq, imgs, T, eager=False)
-    assert tuple(np.subtract(counts(), before)) == (T, 4 * (T - 1), 8 * T + 16)
+    assert tuple(np.subtract(counts(), before)) == (T, 4 * (T - 1), 8 * T + 16, T)
     assert [g.replays for g in vio._live_frame.graphs.values()] == [T - 1]
     wids, wpos, wvio = _live(card, seq, imgs, T, eager=True)
     np.testing.assert_array_equal(ids, wids)
@@ -206,7 +206,7 @@ def test_launch_bookkeeping_on_replay(card):
     before = counts()
     g = cuda_graph.StepGraph(fn, carry, (x,))
     assert counts() == before, "warm-up and capture count no launch"
-    assert g.delta == [0, 1, 0, 0]
+    assert g.delta == [0, 1, 0, 0, 0]
     for _ in range(3):
         g(carry, x)
     assert counts()[0] - before[0] == 3
