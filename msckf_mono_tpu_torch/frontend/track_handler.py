@@ -32,6 +32,13 @@ holds an image and its pyramid (:meth:`TrackHandler.graphable`): from the
 second image on, RANSAC on or off. RANSAC's hypothesis pairs come from a
 device key in the carry, split each frame that has features to track, as the
 JAX package splits its ``jax.random`` key (track_handler.py:174).
+
+RANSAC's work (the two undistorts, the key split, the draw and the scoring)
+is the stage ``frontend.ransac``, nested in ``frontend.track``. Two 0-d int64
+counters, added to on the device and carried with RANSAC on, count what it
+did: ``ransac_frames``, the frames its hypotheses decided (5 valid tracks or
+more), and ``ransac_rejected``, the tracks KLT kept and RANSAC dropped. Read
+them after a run; reading one synchronizes.
 """
 
 from __future__ import annotations
@@ -87,6 +94,10 @@ class TrackHandler:
         self._cur_pyr = None
         self._next_id = torch.zeros((1,), dtype=torch.int32, device=self.device)
         self._key = prng.PRNGKey(0, device=self.device)
+        # RANSAC's counters (0-d int64, added to on the device, carried with
+        # RANSAC on): frames its hypotheses decided, tracks it dropped
+        self.ransac_frames = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.ransac_rejected = torch.zeros((), dtype=torch.int64, device=self.device)
 
         self.prev_pts, self.prev_ids, self.prev_valid = self._empty()
         self.cur_pts, self.cur_ids, self.cur_valid = self._empty()
@@ -121,10 +132,11 @@ class TrackHandler:
     # ---- the frame-to-frame carry ----
 
     def carry(self) -> dict:
-        """The tensors one frame hands to the next, by name (:data:`CARRY`).
+        """The tensors one frame hands to the next, by name (:data:`CARRY`,
+        and RANSAC's counters with it on).
         ``prev_img`` is only an output (each frame sets it from ``cur_img``),
         so before the second image it enters as ``cur_img``."""
-        out = {k: getattr(self, k) for k in CARRY}
+        out = {k: getattr(self, k) for k in self._carried()}
         if out["prev_img"] is None:
             out["prev_img"] = out["cur_img"]
         return out
@@ -132,11 +144,17 @@ class TrackHandler:
     def load(self, carry: dict):
         """Rebind the handler's tensors to ``carry`` (a :meth:`carry` dict;
         a ``prev_img`` that is ``cur_img`` itself stands for none)."""
-        for k in CARRY:
+        for k in self._carried():
             setattr(self, k, carry[k])
         if carry["prev_img"] is carry["cur_img"]:
             self.prev_img = None
         self._prev_pyr = None
+
+    def _carried(self):
+        """:data:`CARRY`, and with RANSAC on its counters
+        (:data:`RANSAC_COUNTERS`); with it off the counters stay out of the
+        frame's graph."""
+        return CARRY + RANSAC_COUNTERS if self.use_ransac else CARRY
 
     def graphable(self) -> bool:
         """Whether the next frame's device work can be one captured graph:
@@ -225,20 +243,32 @@ class TrackHandler:
             pts, status = functional.track(self._prev_pyr, self._cur_pyr, self.prev_pts,
                                            self.prev_valid, self.dR, self.K, self.K_inv, self.fcfg)
             if self.use_ransac:
-                prev_n = self._undistort(self.prev_pts)
-                cur_n = self._undistort(pts)
-                # the JAX package splits its key only on a frame with features to
-                # track (it returns early on the others)
-                key, sub = prng.split(self._key)
-                self._key = torch.where(torch.any(self.prev_valid), key, self._key)
-                status = status & ransac.two_point_ransac(
-                    self.dR, prev_n[0], cur_n[0], status[0], sub, self.ransac_threshold,
-                )[None]
+                status = self._ransac(pts, status)
 
             self.cur_pts, self.cur_valid = pts, status
             uv, self.cur_ids = functional.tracked_outputs(pts, status, self.prev_ids, self.K,
                                                           self.dist_coeffs, self.dist_model)
             return uv, self.cur_ids, status
+
+    def _ransac(self, pts, status):
+        """Two-point RANSAC over KLT's survivors ``status`` (1, F), in its own
+        range inside ``frontend.track``; the counters add this frame's
+        decision and rejects on the device."""
+        with stage("frontend.ransac"):
+            prev_n = self._undistort(self.prev_pts)
+            cur_n = self._undistort(pts)
+            # the JAX package splits its key only on a frame with features to
+            # track (it returns early on the others)
+            key, sub = prng.split(self._key)
+            self._key = torch.where(torch.any(self.prev_valid), key, self._key)
+            kept = status & ransac.two_point_ransac(
+                self.dR, prev_n[0], cur_n[0], status[0], sub, self.ransac_threshold,
+            )[None]
+            # the hypotheses decide with 5 valid tracks or more; with fewer every
+            # track is kept (corner_detector.cpp:480-483)
+            self.ransac_frames = self.ransac_frames + (torch.sum(status) >= 5)
+            self.ransac_rejected = self.ransac_rejected + torch.sum(status & ~kept)
+            return kept
 
     # ---- detection (corner_detector.cpp:396-429) ----
 
@@ -301,4 +331,4 @@ class TrackHandler:
 CARRY = ("prev_img", "cur_img", "_cur_pyr", "prev_pts", "prev_ids", "prev_valid", "cur_pts",
          "cur_ids", "cur_valid", "new_pts", "new_ids", "new_valid", "_next_id", "_gyro_sum",
          "_gyro_n", "dR", "_key")
-
+RANSAC_COUNTERS = ("ransac_frames", "ransac_rejected")

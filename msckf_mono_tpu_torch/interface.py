@@ -51,7 +51,8 @@ buffers, after the previous frame that read them), the graph's
 the device and the copy) and ``live.unpack``. ``LiveFrame.frame`` marks
 its front-end as the stage ``step.frontend``; the tracker's stages inside it
 are the image step's ``frontend.dedup`` (at ingest), ``frontend.pyramid``,
-``frontend.track`` and ``frontend.detect``.
+``frontend.track`` and ``frontend.detect``, and with RANSAC on
+``frontend.ransac`` inside ``frontend.track``.
 """
 
 from __future__ import annotations

@@ -21,7 +21,7 @@ static buffers, as the kernels' plain versions serve the CPU, so the CPU
 tests run the buffer and copy-back logic that the card replays.
 
 Capture (``capture_error_mode="thread_local"``) is preceded by one warm-up
-call on a side stream, on clones of the inputs: it fills the lazy caches
+call on the current stream, on clones of the inputs: it fills the lazy caches
 (the per-device constants of ``core/augment``, ``core/pipeline``, the
 front-end's operators, the kernels' shared-memory attributes and occupancy
 queries, library handles) so that nothing copies from the host or
@@ -144,9 +144,15 @@ def counted_apart(counters=LAUNCH_COUNTERS):
 
 
 def warm_up(fn, args, counters=LAUNCH_COUNTERS):
-    """One call of ``fn`` on clones of ``args`` (a tuple of trees), on a side
-    stream for CUDA tensors, with its launches set apart: the lazy caches
-    fill, and no state advances and no count moves."""
+    """One call of ``fn`` on clones of ``args`` (a tuple of trees), on the
+    device's current stream, with its launches set apart: the lazy caches
+    fill, and no state advances and no count moves.
+
+    Not on a side stream: a side stream's first real work leaves the card
+    launching every later kernel of the process, replayed graphs included,
+    ~0.2 us slower (~1.2 against ~1.0 us a kernel of a graph of tiny
+    kernels on an H100) until it recovers at a random point, often not
+    within a run; the live frame then ran ~13 or ~16 ms, by process."""
     leaves, structure = flatten(args)
     clones = unflatten(structure, [x.clone() for x in leaves])
     cuda = [x for x in leaves if x.is_cuda]
@@ -154,11 +160,8 @@ def warm_up(fn, args, counters=LAUNCH_COUNTERS):
         if not cuda:
             fn(*clones)
             return
-        side = torch.cuda.Stream(cuda[0].device)
-        side.wait_stream(torch.cuda.current_stream(cuda[0].device))
-        with torch.cuda.stream(side):
+        with torch.cuda.device(cuda[0].device):
             fn(*clones)
-        torch.cuda.current_stream(cuda[0].device).wait_stream(side)
 
 
 def _release_generator(device):
